@@ -1,0 +1,115 @@
+"""Command-line interface (counterpart of polypolish_tpu/cli.py;
+reference: main.rs:23-126).
+
+This slice of the port carries the ``polish`` subcommand:
+
+  python -m polypolish_tpu_torch polish [--debug FILE] [-i 0.2] [-v 0.5]
+      [-m 10] [-d 5] [--careful] [--threads N]
+      [--backend device|host] [--device cuda|cpu] assembly sam [sam ...]
+
+``--backend device`` (default) counts votes with the port's CUDA kernels
+on ``--device`` (default cuda; cpu runs their plain PyTorch versions);
+``--backend host`` runs the C++ fold and consensus.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import List, Optional
+
+from polypolish_tpu_torch import TOOL_NAME, __version__
+from polypolish_tpu_torch.errors import PolypolishError, render_error_and_exit
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="python -m polypolish_tpu_torch",
+        description=(
+            f"{TOOL_NAME} v{__version__}: short-read polishing of long-read "
+            "assemblies (PyTorch/CUDA port)"
+        ),
+    )
+    parser.add_argument(
+        "--version", action="version", version=f"{TOOL_NAME} v{__version__}"
+    )
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser(
+        "polish", help="polish a long-read assembly using short-read alignments"
+    )
+    p.add_argument(
+        "--debug", default=None,
+        help="Optional file to store per-base information for debugging purposes",
+    )
+    p.add_argument(
+        "-i", "--fraction_invalid", type=float, default=0.2,
+        help="A base must make up less than this fraction of the read depth "
+        "to be considered invalid (default: 0.2)",
+    )
+    p.add_argument(
+        "-v", "--fraction_valid", type=float, default=0.5,
+        help="A base must make up at least this fraction of the read depth "
+        "to be considered valid (default: 0.5)",
+    )
+    p.add_argument(
+        "-m", "--max_errors", type=int, default=10,
+        help="Ignore alignments with more than this many mismatches and "
+        "indels (default: 10)",
+    )
+    p.add_argument(
+        "-d", "--min_depth", type=int, default=5,
+        help="A base must occur at least this many times in the pileup to "
+        "be considered valid (default: 5)",
+    )
+    p.add_argument(
+        "--careful", action="store_true",
+        help="Ignore any reads with multiple alignments",
+    )
+    p.add_argument(
+        "--threads", type=int, default=None,
+        help="Native SAM parser threads (default: all cores, max 16; "
+        "output is bit-identical for any value)",
+    )
+    p.add_argument(
+        "--backend", default="device", choices=("device", "host"),
+        help="Vote/consensus backend: 'device' (the CUDA kernels, "
+        "default) or 'host' (the C++ fold)",
+    )
+    p.add_argument(
+        "--device", default="cuda", choices=("cuda", "cpu"),
+        help="Torch device of --backend device (default: cuda; cpu runs "
+        "the kernels' plain PyTorch versions)",
+    )
+    p.add_argument("assembly", help="Assembly to polish (one file in FASTA format)")
+    p.add_argument(
+        "sam", nargs="+", help="Short read alignments (one or more files in SAM format)"
+    )
+    return parser
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    if argv is None:
+        argv = sys.argv[1:]
+    parser = build_parser()
+    if not argv:
+        parser.print_help(sys.stderr)
+        return 2
+    args = parser.parse_args(argv)
+    try:
+        from polypolish_tpu_torch.pipeline.polish import polish
+
+        polish(
+            args.debug, args.fraction_invalid, args.fraction_valid,
+            args.max_errors, args.min_depth, args.careful,
+            args.assembly, args.sam,
+            backend=args.backend, n_threads=args.threads,
+            device=args.device,
+        )
+    except PolypolishError as e:
+        render_error_and_exit(e)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,313 @@
+"""The port's ``polish`` end to end against polypolish_tpu's.
+
+On the CPU, ``polypolish_tpu_torch.pipeline.polish.polish`` (backend
+"device" with device="cpu", which runs the kernels' plain PyTorch
+versions, and backend "host") must give a FASTA and --debug TSV
+byte-identical to ``polypolish_tpu.pipeline.polish.polish`` (backends
+"host" and "pallas") and to tests/golden/*.expected.*, and a stderr
+narrative identical once the clock lines are masked.  Also: the port
+imports neither jax nor polypolish_tpu (a subprocess run and a static
+scan), and its CLI matches the JAX package's.
+"""
+
+import ast
+import contextlib
+import importlib.util
+import io
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import tests.synth as synth
+from polypolish_tpu.errors import PolypolishError as JaxError
+from polypolish_tpu.pipeline.polish import polish as jax_polish
+from polypolish_tpu_torch.errors import PolypolishError
+from polypolish_tpu_torch.pipeline.polish import polish as port_polish
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN = os.path.join(REPO, "tests", "golden")
+
+_spec = importlib.util.spec_from_file_location(
+    "make_goldens", os.path.join(GOLDEN, "make_goldens.py")
+)
+_mg = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_mg)
+GOLDEN_CASES = ["tiny"] + sorted(_mg.CASES)
+
+_CLOCK = re.compile(r"\(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d\)|"
+                    r"Time to run: \d+:\d\d:\d\d\.\d{6}")
+
+
+def mask_clock(text: str) -> str:
+    return _CLOCK.sub("<clock>", text)
+
+
+def run(fn, tmp_path, tag, fasta, sams, careful=False, **kwargs):
+    """(FASTA, debug TSV, masked stderr) of one polish run.  The debug
+    path is the same for every run so the stderr narratives compare."""
+    debug = tmp_path / "debug.tsv"
+    out = io.StringIO()
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        fn(str(debug), 0.2, 0.5, 10, 5, careful, str(fasta),
+           [str(s) for s in sams], out=out, **kwargs)
+    tsv = debug.read_text()
+    os.replace(debug, tmp_path / f"debug_{tag}.tsv")
+    return out.getvalue(), tsv, mask_clock(err.getvalue())
+
+
+PORT_RUNS = {
+    "device": dict(backend="device", device="cpu"),
+    "host": dict(backend="host"),
+}
+
+
+@pytest.mark.parametrize("port_backend", sorted(PORT_RUNS))
+@pytest.mark.parametrize("name", GOLDEN_CASES)
+def test_golden_matches_jax_host_and_files(tmp_path, name, port_backend):
+    careful = name != "tiny" and _mg.CASES[name]["params"].get(
+        "careful", False)
+    fasta = os.path.join(GOLDEN, f"{name}.fasta")
+    sams = [os.path.join(GOLDEN, f"{name}.sam")]
+    got = run(port_polish, tmp_path, "port", fasta, sams, careful,
+              **PORT_RUNS[port_backend])
+    want = run(jax_polish, tmp_path, "jax", fasta, sams, careful,
+               backend="host")
+    assert got == want
+    with open(os.path.join(GOLDEN, f"{name}.expected.fasta")) as f:
+        assert got[0] == f.read()
+    with open(os.path.join(GOLDEN, f"{name}.expected.tsv")) as f:
+        assert got[1] == f.read()
+
+
+@pytest.mark.parametrize("name", ["tiny", "indel_adopted", "multi_contig",
+                                  "careful_mode", "third_weights"])
+def test_golden_matches_jax_pallas(tmp_path, name):
+    careful = name != "tiny" and _mg.CASES[name]["params"].get(
+        "careful", False)
+    fasta = os.path.join(GOLDEN, f"{name}.fasta")
+    sams = [os.path.join(GOLDEN, f"{name}.sam")]
+    got = run(port_polish, tmp_path, "port", fasta, sams, careful,
+              backend="device", device="cpu")
+    want = run(jax_polish, tmp_path, "jax", fasta, sams, careful,
+               backend="pallas")
+    assert got == want
+
+
+def _synth_case(tmp_path, kind):
+    """(fasta path, [sam paths], careful) of a tests/synth.py case."""
+    if kind == "multi_contig":
+        fasta, sam_text = synth.make_multi_contig_case(
+            seed=4, n_contigs=3, genome_len=2500, n_reads=700,
+            read_len=50)
+        sams = [sam_text]
+    elif kind == "two_files":
+        fasta, s1 = synth.make_polish_case(seed=11, genome_len=5000,
+                                           n_reads=1500, read_len=70)
+        _, s2 = synth.make_polish_case(seed=11, genome_len=5000,
+                                       n_reads=1500, read_len=70,
+                                       shuffle_groups=True)
+        sams = [s1, s2]
+    else:  # deep, insertion-rich pileup: sparse tier + overflow list
+        fasta, sam_text = synth.make_polish_case(
+            seed=12, genome_len=3000, n_reads=6000, read_len=60,
+            err=0.15, multi_frac=0.5, n_draft_errors=25)
+        sams = [sam_text]
+    asm = tmp_path / f"{kind}.fasta"
+    asm.write_text(synth.fasta_text(fasta))
+    paths = []
+    for i, text in enumerate(sams):
+        p = tmp_path / f"{kind}_{i}.sam"
+        p.write_text(text)
+        paths.append(p)
+    return asm, paths
+
+
+@pytest.mark.parametrize("careful", [False, True])
+@pytest.mark.parametrize("kind", ["multi_contig", "two_files", "deep"])
+def test_synth_matches_jax(tmp_path, kind, careful):
+    asm, sams = _synth_case(tmp_path, kind)
+    device = run(port_polish, tmp_path, "dev", asm, sams, careful,
+                 backend="device", device="cpu")
+    host = run(port_polish, tmp_path, "host", asm, sams, careful,
+               backend="host")
+    jax_host = run(jax_polish, tmp_path, "jh", asm, sams, careful,
+                   backend="host")
+    jax_pallas = run(jax_polish, tmp_path, "jp", asm, sams, careful,
+                     backend="pallas")
+    assert device == jax_host
+    assert host == jax_host
+    assert jax_pallas == jax_host
+
+
+def test_python_debug_writer_matches_native(tmp_path, monkeypatch):
+    """The Python --debug loop (taken for non-ASCII content) writes the
+    same bytes as the native writer."""
+    port_module = sys.modules["polypolish_tpu_torch.pipeline.polish"]
+    asm, sams = _synth_case(tmp_path, "deep")
+    native = run(port_polish, tmp_path, "native", asm, sams,
+                 backend="device", device="cpu")
+    monkeypatch.setattr(port_module, "_write_debug_lines_native",
+                        lambda *a, **k: False)
+    python = run(port_polish, tmp_path, "python", asm, sams,
+                 backend="device", device="cpu")
+    assert python == native
+
+
+def test_deep_case_exercises_sparse_tier_and_overflow(tmp_path):
+    """The 'deep' synth case really reaches the sparse tier and the
+    cap-overflow list (so the chunk vote path runs end to end)."""
+    from polypolish_tpu_torch.io.fasta import load_fasta
+    from polypolish_tpu_torch.native import runs
+    from polypolish_tpu_torch.vocab import Vocab
+
+    asm, sams = _synth_case(tmp_path, "deep")
+    fa = load_fasta(asm)
+    names = [n for n, _, _ in fa]
+    lens = {n: len(s) for n, _, s in fa}
+    pr = runs.parse_runs([str(s) for s in sams], names, lens, Vocab(), 10,
+                         False)
+    try:
+        assert pr.sparse(names[0])[0].size > 0
+        pack = pr.lanes(names[0], 32, 2048, num_positions=4096,
+                        packed4=True, cap=True)
+        assert (pack.ov_vid < 8).sum() > 0
+        pack.close()
+    finally:
+        pr.close()
+
+
+@pytest.mark.parametrize("args,match", [
+    (dict(fraction_invalid=0.6), "less than --fraction_valid"),
+    (dict(fraction_valid=1.0), "between 0 and 1"),
+    (dict(assembly="missing.fasta"), "does not exist"),
+    (dict(sam=["missing.sam"]), "does not exist"),
+])
+def test_fatal_errors_match_jax(tmp_path, args, match):
+    params = dict(debug=None, fraction_invalid=0.2, fraction_valid=0.5,
+                  max_errors=10, min_depth=5, careful=False,
+                  assembly=os.path.join(GOLDEN, "tiny.fasta"),
+                  sam=[os.path.join(GOLDEN, "tiny.sam")])
+    params.update(args)
+    with contextlib.redirect_stderr(io.StringIO()):
+        with pytest.raises(PolypolishError, match=match) as got:
+            port_polish(**params, out=io.StringIO(), device="cpu")
+        with pytest.raises(JaxError) as want:
+            jax_polish(**params, out=io.StringIO(), backend="host")
+    assert str(got.value) == str(want.value)
+
+
+def test_cuda_without_gpu_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        port_polish(None, 0.2, 0.5, 10, 5, False,
+                    os.path.join(GOLDEN, "tiny.fasta"),
+                    [os.path.join(GOLDEN, "tiny.sam")], out=io.StringIO())
+
+
+def test_unknown_backend_raises():
+    with pytest.raises(ValueError, match="backend"):
+        port_polish(None, 0.2, 0.5, 10, 5, False,
+                    os.path.join(GOLDEN, "tiny.fasta"),
+                    [os.path.join(GOLDEN, "tiny.sam")], out=io.StringIO(),
+                    backend="pallas")
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["POLYPOLISH_TPU_PLAIN_LOG"] = "1"
+    env["JAX_PLATFORMS"] = "cpu"
+    return env
+
+
+def test_cli_matches_jax_cli(tmp_path):
+    fasta = os.path.join(GOLDEN, "multi_contig.fasta")
+    sam = os.path.join(GOLDEN, "multi_contig.sam")
+    dbg = str(tmp_path / "d.tsv")
+
+    def cli(pkg, *extra):
+        proc = subprocess.run(
+            [sys.executable, "-m", pkg, "polish", "--debug", dbg, *extra,
+             fasta, sam],
+            capture_output=True, text=True, env=_env(), cwd=REPO,
+            timeout=300,
+        )
+        assert proc.returncode == 0, proc.stderr
+        with open(dbg) as f:
+            tsv = f.read()
+        return proc.stdout, tsv, mask_clock(proc.stderr)
+
+    got = cli("polypolish_tpu_torch", "--device", "cpu")
+    assert got == cli("polypolish_tpu_torch", "--backend", "host")
+    assert got == cli("polypolish_tpu", "--backend", "host")
+
+
+def test_cli_fatal_error_exit_code(tmp_path):
+    proc = subprocess.run(
+        [sys.executable, "-m", "polypolish_tpu_torch", "polish", "--device",
+         "cpu", str(tmp_path / "nope.fasta"), str(tmp_path / "nope.sam")],
+        capture_output=True, text=True, env=_env(), cwd=REPO, timeout=300,
+    )
+    assert proc.returncode == 1
+    assert "does not exist" in proc.stderr
+
+
+_NO_JAX_SCRIPT = r"""
+import io, sys
+from polypolish_tpu_torch.pipeline.polish import polish
+polish(None, 0.2, 0.5, 10, 5, False, sys.argv[1], [sys.argv[2]],
+       out=io.StringIO(), device="cpu")
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "polypolish_tpu" or m.startswith("polypolish_tpu."))
+print("BAD:" + ",".join(bad))
+"""
+
+
+def test_port_imports_no_jax_at_run_time():
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_JAX_SCRIPT,
+         os.path.join(GOLDEN, "indel_adopted.fasta"),
+         os.path.join(GOLDEN, "indel_adopted.sam")],
+        capture_output=True, text=True, env=_env(), cwd=REPO, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "BAD:"
+
+
+def _port_sources():
+    root = os.path.join(REPO, "polypolish_tpu_torch")
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def _forbidden(name: str) -> bool:
+    return (name == "jax" or name.startswith("jax.")
+            or name == "polypolish_tpu" or name.startswith("polypolish_tpu."))
+
+
+def test_port_sources_import_no_jax():
+    offenders = []
+    n_files = 0
+    for path in _port_sources():
+        n_files += 1
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [f"{path}: {n}" for n in names if _forbidden(n)]
+    assert n_files > 15
+    assert offenders == []
