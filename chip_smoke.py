@@ -7,26 +7,42 @@ NVIDIA GPU.
 Phases, in order; any failure raises and exits non-zero:
 
 1. Print the card (nvidia-smi name, power limit).  Build the native C++
-   engine (g++) and both CUDA kernels (one nvcc per source, in
+   engine (g++) and both CUDA kernel sources (one nvcc per source, in
    parallel) from the sources in the checkout, while the workloads are
    generated: benchmarks/workload.py's 4.6 Mb E. coli-shaped draft with
    paired 150 bp reads at 50x (two SAM files), and its repeat-rich
    variant (a 5 kb segment in 8 copies).
-2. The lanes vote kernel against its plain PyTorch version on the card,
-   bitwise: the E. coli pack, a skewed pack with a tile deeper than 255
-   byte-rows, and a stream rounded to a 32,768-block slab multiple.
-3. The chunk vote kernel against its plain version, bitwise, in both
-   pad layouts: the E. coli cap-overflow chunks (int32, pos -1) and the
-   E. coli events in the native uint8 chunk layout (vocab 255).
-4. End to end: ``polish`` with backend="device" on the card for both
-   workloads, each FASTA byte-identical to the port's backend="host"
-   run and each stderr identical with the clock masked; the kernels'
-   launch counters, zeroed just before, must be non-zero just after.
-   Per-stage times and the total are printed.
-5. Kernel and plain-version times with CUDA events, one PyTorch
-   library call on the same inputs as a yardstick (torch.bincount), and
-   the least time the card could take (bytes over 3.35 TB/s).  Then the
-   ``kernels`` JSON line and, last, the device JSON line.
+2. The lanes vote kernel's three entry points against their plain
+   PyTorch version on the card, bitwise: packed4 (A) on the E. coli
+   pack, a skewed pack with a tile deeper than 255 byte-rows, and a
+   stream rounded to a 32,768-block slab multiple; the byte rows (D/E,
+   uint8 and int8) and the packed8 nibbles (C) on the E. coli byte pack
+   and the skewed deep pack (past 255 byte-rows and 31 packed8 rows).
+3. The chunk vote kernel against its plain version, bitwise: both pad
+   layouts on the E. coli cap-overflow chunks (int32, pos -1) and the
+   E. coli events (uint8, vocab 255), and tile_p 128/256/512 x e_sub 4/8
+   on a 3 M-event skewed stream, two chunks per step at e_sub 4.
+4. End to end: ``polish`` on the card for both workloads with
+   backend="device" (kernel_variant "lanes" and "mxu") and backend
+   "xla", each FASTA byte-identical to the port's backend="host" run
+   and each stderr identical with the clock masked.  The kernels'
+   launch counters are zeroed just before each run and read just after:
+   lanes launches kernel A and the chunk kernel, mxu the chunk kernel
+   and no lanes kernel, xla no hand kernel.  Per-stage times are
+   printed.
+5. The other entry points at full size, each with the counters zeroed
+   before and read after, each result equal to the host fold's counts:
+   LanesPolisher with bodies "packed" and "cmp" on the E. coli byte pack
+   (entry point lanes_vote_bytes; its decisions equal the host
+   consensus), dense_counts_lanes(body="packed8", cap=True) on all
+   E. coli events (lanes_vote_packed8), and dense_counts_chunks with
+   fused "split", "fused" and "unfused" plus two chunks per step
+   (chunk_vote).
+6. Kernel and plain-version times with CUDA events, one PyTorch library
+   call on the same inputs as a yardstick (torch.bincount), and the
+   least time the card could take (bytes over 3.35 TB/s, or integer
+   operations over the int32 issue rate).  Then the ``kernels`` JSON
+   line and, last, the device JSON line.
 
 Exits non-zero, printing no result, when torch.cuda.is_available() is
 false or the repository's port package is not importable.
@@ -55,6 +71,7 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 DATA_DIR = os.path.join(HERE, "build", "chip_smoke")
+TIMED_LAUNCHES = 50
 
 
 def check(cond, msg):
@@ -142,6 +159,8 @@ def build_everything(cases_future_fn):
 
 
 def parse(fasta, sams):
+    """(ParsedRuns, contig name, length, sequence, vocab) of a
+    single-contig workload."""
     from polypolish_tpu_torch.io.fasta import load_fasta
     from polypolish_tpu_torch.native import runs
     from polypolish_tpu_torch.vocab import Vocab
@@ -149,21 +168,26 @@ def parse(fasta, sams):
     fa = load_fasta(fasta)
     names = [n for n, _, _ in fa]
     lens = {n: len(s) for n, _, s in fa}
-    return runs.parse_runs(sams, names, lens, Vocab(), 10, False), names[0], lens[names[0]]
+    vocab = Vocab()
+    pr = runs.parse_runs(sams, names, lens, vocab, 10, False)
+    return pr, names[0], lens[names[0]], fa[0][2], vocab
 
 
 def lanes_keys(vb: torch.Tensor, block_tile: torch.Tensor, n_tiles: int,
-               r_sub: int, tile_w: int) -> torch.Tensor:
-    """Flattened (v * width + position) keys of every dense byte of a
-    packed4 pack — the input of the torch.bincount yardstick."""
+               r_sub: int, tile_w: int, body: str) -> torch.Tensor:
+    """Flattened (v * width + position) keys of every dense slot of a
+    lane pack in the body's layout — the input of the torch.bincount
+    yardstick."""
+    from polypolish_tpu_torch.ops import vote_lanes
+
     width = n_tiles * tile_w
-    rows = block_tile.to(torch.int64).repeat_interleave(r_sub // 4) * tile_w
+    rpb = vote_lanes._rows_per_block(r_sub, body)
+    rows = block_tile.to(torch.int64).repeat_interleave(rpb) * tile_w
     cols = torch.arange(tile_w, device=vb.device)
-    shifts = torch.tensor([0, 8, 16, 24], dtype=torch.int32, device=vb.device)
     parts = []
     step = (1 << 22) // tile_w
     for r0 in range(0, vb.shape[0], step):
-        b = (vb[r0:r0 + step, :, None] >> shifts) & 0xFF
+        b = vote_lanes._slots(vb[r0:r0 + step], body)
         slot = rows[r0:r0 + step, None] + cols[None, :]
         keys = b.to(torch.int64) * width + slot[:, :, None]
         parts.append(keys[b < 8])
@@ -183,8 +207,14 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    from polypolish_tpu_torch.models.polisher import LanesPolisher
+    from polypolish_tpu_torch.native import binding
     from polypolish_tpu_torch.ops import vote_chunks, vote_lanes
-    from polypolish_tpu_torch.pipeline.polish import _pad_bucket, polish
+    from polypolish_tpu_torch.pipeline.polish import (
+        _orig_ids_for_seq,
+        _pad_bucket,
+        polish,
+    )
     from polypolish_tpu_torch.utils.profiling import StageTimer
 
     t_start = time.monotonic()
@@ -212,12 +242,13 @@ def main() -> int:
     print(f"phase 1 (builds + workloads): {time.monotonic() - t0:.1f} s")
 
     R_SUB, TILE_W = vote_lanes.R_SUB, vote_lanes.TILE_W
-    errs = {"lanes": 0, "chunks": 0}
+    LANES = ("lanes_vote_packed4", "lanes_vote_bytes", "lanes_vote_packed8")
+    errs = {k: 0 for k in LANES + ("chunk_vote",)}
 
     # -- phase 2: lanes vote kernel vs plain --------------------------
     t0 = time.monotonic()
     fasta, sams = cases["ecoli50x"]
-    pr, name, P = parse(fasta, sams)
+    pr, name, P, seq, vocab = parse(fasta, sams)
     p_pad = _pad_bucket(P)
     pack = pr.lanes(name, R_SUB, TILE_W, num_positions=p_pad, packed4=True,
                     cap=True)
@@ -234,23 +265,43 @@ def main() -> int:
               f"overflow={pack.n_overflow}")
     finally:
         pack.close()
+    bpack = pr.lanes(name, R_SUB, TILE_W, num_positions=p_pad, cap=True)
+    check(bpack is not None, "E. coli byte pack")
+    try:
+        h_vb8 = bpack.vb.copy()  # uint8 byte rows, the D/E and C source
+        h_bt8 = bpack.block_tile.copy()
+        b_ov = (bpack.ov_pos.copy(), bpack.ov_vid.copy())
+    finally:
+        bpack.close()
+    b_vb = torch.from_numpy(h_vb8).to(dev)
+    b_bt = torch.from_numpy(h_bt8).to(dev)
+    n_vb = torch.from_numpy(vote_lanes.to_packed8(h_vb8, R_SUB)).to(dev)
 
-    def check_lanes(label, vb, bt, n_tiles, r_sub, tile_w):
-        got = vote_lanes.lanes_counts(vb, bt, n_tiles, r_sub, tile_w)
-        want = vote_lanes.lanes_counts_plain(vb, bt, n_tiles, r_sub, tile_w)
+    def check_lanes(label, vb, bt, n_tiles, r_sub, tile_w, body="packed4"):
+        entry = vote_lanes.BODIES[body][1]
+        got = vote_lanes.lanes_counts(vb, bt, n_tiles, r_sub, tile_w, body)
+        want = vote_lanes.lanes_counts_plain(vb, bt, n_tiles, r_sub, tile_w,
+                                             body)
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
-        check(err == 0, f"lanes kernel != plain on {label} (max err {err})")
-        errs["lanes"] = max(errs["lanes"], err)
-        print(f"lanes kernel == plain on {label}: {tuple(vb.shape)} int32, "
+        check(err == 0, f"{entry} != plain on {label} (max err {err})")
+        errs[entry] = max(errs[entry], err)
+        print(f"{entry} == plain on {label}: {tuple(vb.shape)} {vb.dtype}, "
               f"{n_tiles} tiles, {int(want.sum())} votes")
         return got
 
     e_counts = check_lanes("E. coli pack", e_vb, e_bt, e_ntiles, R_SUB,
                            TILE_W)
+    for body, vb in (("packed", b_vb), ("cmp", b_vb.view(torch.int8)),
+                     ("packed8", n_vb)):
+        got = check_lanes(f"E. coli pack, body {body}", vb, b_bt, e_ntiles,
+                          R_SUB, TILE_W, body)
+        check(torch.equal(got, e_counts),
+              f"body {body} counts != packed4 counts on the E. coli pack")
+    del got
 
     # skewed pack: a hot spot ~2,000 deep puts one tile far past 255
-    # byte-rows (the kernel's packed-plane flush boundary)
+    # byte-rows and 31 packed8 rows (the kernels' plane-flush periods)
     rng = np.random.default_rng(1)
     n_sk, p_sk = 3_000_000, 200_000
     pos = np.concatenate([rng.integers(0, p_sk, n_sk - 40_000),
@@ -260,9 +311,13 @@ def main() -> int:
     vb_u8, bt, n_tiles = vote_lanes.prepare_lanes(pos, voc, p_sk)
     deepest = int((bt == 5000 // TILE_W).sum()) * R_SUB
     check(deepest > 255, f"skewed pack deepest tile {deepest} byte-rows")
-    check_lanes(f"skewed pack (deepest tile {deepest} byte-rows)",
-                torch.from_numpy(vote_lanes.to_packed4(vb_u8, R_SUB)).to(dev),
-                torch.from_numpy(bt).to(dev), n_tiles, R_SUB, TILE_W)
+    d_bt = torch.from_numpy(bt).to(dev)
+    for body, arr in (("packed4", vote_lanes.to_packed4(vb_u8, R_SUB)),
+                      ("packed", vb_u8),
+                      ("packed8", vote_lanes.to_packed8(vb_u8, R_SUB))):
+        check_lanes(f"skewed pack, body {body} (deepest tile {deepest} "
+                    f"byte-rows)", torch.from_numpy(arr).to(dev), d_bt,
+                    n_tiles, R_SUB, TILE_W, body)
 
     # slab-rounded stream: 33,000 real blocks rounded up to 65,536 (two
     # slabs of MAX_BLOCKS_PER_CALL), pad blocks on the last tile
@@ -288,14 +343,17 @@ def main() -> int:
     # -- phase 3: chunk vote kernel vs plain --------------------------
     t0 = time.monotonic()
 
-    def check_chunks(label, cp, cv, ct, n_tiles):
-        got = vote_chunks.chunk_counts(cp, cv, ct, n_tiles)
-        want = vote_chunks.chunk_counts_plain(cp, cv, ct, n_tiles)
+    def check_chunks(label, cp, cv, ct, n_tiles, tile_p=256, e_sub=8,
+                     k=1):
+        got = vote_chunks.chunk_counts(cp, cv, ct, n_tiles, tile_p, e_sub,
+                                       chunks_per_step=k)
+        want = vote_chunks.chunk_counts_plain(cp, cv, ct, n_tiles, tile_p,
+                                              e_sub)
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
         check(err == 0, f"chunk kernel != plain on {label} (max err {err})")
-        errs["chunks"] = max(errs["chunks"], err)
-        print(f"chunk kernel == plain on {label}: {ct.shape[0]} chunks "
+        errs["chunk_vote"] = max(errs["chunk_vote"], err)
+        print(f"chunk_vote == plain on {label}: {ct.shape[0]} chunks "
               f"{cp.dtype}, {int(want.sum())} votes")
         return got
 
@@ -307,127 +365,262 @@ def main() -> int:
                    num_positions=p_pad)
     check(u8 is not None, "uint8 chunks")
     u_cp, u_cv, u_ct = (torch.from_numpy(a).to(dev) for a in u8[:3])
+    u_tiles = u8[3]
     u_counts = check_chunks("E. coli events (uint8, pad vocab 255)",
-                            u_cp, u_cv, u_ct, u8[3])
+                            u_cp, u_cv, u_ct, u_tiles)
     # both layouts add up to the same pileup: lanes + overflow == chunks
     full = e_counts + vote_chunks.chunk_counts_plain(o_cp, o_cv, o_ct,
                                                      ov_tiles)[:, :p_pad]
     check(torch.equal(full, u_counts[:, :p_pad]),
           "lanes + overflow counts != uint8 chunk counts")
-    del u_cp, u_cv, u_ct, u8, u_counts, full
-    pr.close()
+    del u8, u_counts, full
+
+    # tile_p / e_sub / chunks_per_step geometry on a skewed stream
+    pos = np.concatenate([rng.integers(0, p_sk, n_sk - 200_000),
+                          rng.integers(7000, 7100, 200_000)])
+    voc = rng.integers(0, 10, pos.size)
+    for tile_p in (128, 256, 512):
+        for e_sub in (4, 8):
+            k = 2 if e_sub == 4 else 1
+            cp, cv, ct, n_t = vote_chunks.prepare_chunks(
+                pos, voc, p_sk, tile_p, e_sub, chunk_multiple=k)
+            check_chunks(f"skewed stream tile_p={tile_p} e_sub={e_sub} "
+                         f"chunks_per_step={k}",
+                         *(torch.from_numpy(a).to(dev) for a in (cp, cv, ct)),
+                         n_t, tile_p, e_sub, k)
     print(f"phase 3 (chunk kernel): {time.monotonic() - t0:.1f} s")
 
     # -- phase 4: end to end ------------------------------------------
-    launches = {}
-    for case, (fasta, sams) in cases.items():
+    launches = {k: 0 for k in errs}
+
+    def zero_counts():
+        vote_lanes.lanes_counts.launches.clear()
+        vote_chunks.chunk_counts.launches = 0
+
+    def read_counts():
+        got = {k: vote_lanes.lanes_counts.launches[k] for k in LANES}
+        got["chunk_vote"] = vote_chunks.chunk_counts.launches
+        for k, n in got.items():
+            launches[k] += n
+        return got
+
+    paths = (("host", dict(backend="host")),
+             ("lanes", dict(backend="device", kernel_variant="lanes")),
+             ("mxu", dict(backend="device", kernel_variant="mxu")),
+             ("xla", dict(backend="xla")))
+    for case, (fasta_c, sams_c) in cases.items():
         runs = {}
-        for backend in ("device", "host"):
-            timer = StageTimer(sync_device=dev if backend == "device"
-                               else None)
+        for path, kwargs in paths:
+            timer = StageTimer(sync_device=dev if path != "host" else None)
             out, err = io.StringIO(), io.StringIO()
-            vote_lanes.lanes_counts.launches = 0
-            vote_chunks.chunk_counts.launches = 0
+            zero_counts()
             t0 = time.monotonic()
             with contextlib.redirect_stderr(err):
-                lengths = polish(None, 0.2, 0.5, 10, 5, False, fasta, sams,
-                                 out=out, backend=backend, device="cuda",
-                                 timer=timer)
+                lengths = polish(None, 0.2, 0.5, 10, 5, False, fasta_c,
+                                 sams_c, out=out, device=dev, timer=timer,
+                                 **kwargs)
             total = time.monotonic() - t0
-            counts = (vote_lanes.lanes_counts.launches,
-                      vote_chunks.chunk_counts.launches)
-            runs[backend] = (out.getvalue(), _CLOCK.sub("", err.getvalue()))
+            counts = read_counts()
+            runs[path] = (out.getvalue(), _CLOCK.sub("", err.getvalue()))
             stages = " ".join(f"{k} {v:.3f}"
                               for k, v in timer.seconds.items())
-            print(f"e2e {case} backend={backend}: total {total:.3f} s | "
-                  f"{stages} | launches lanes={counts[0]} "
-                  f"chunks={counts[1]} | lengths {lengths}")
-            if backend == "device":
-                check(counts[0] > 0 and counts[1] > 0,
-                      f"{case}: kernels not launched on the main path "
+            print(f"e2e {case} path={path}: total {total:.3f} s | {stages} "
+                  f"| launches {counts} | lengths {lengths}")
+            n_lanes = sum(counts[k] for k in LANES)
+            if path == "lanes":
+                check(counts["lanes_vote_packed4"] > 0
+                      and counts["chunk_vote"] > 0,
+                      f"{case}: kernels not launched on the lanes path "
                       f"{counts}")
-                for k, n in zip(("lanes", "chunks"), counts):
-                    launches[k] = launches.get(k, 0) + n
-        check(runs["device"][0] == runs["host"][0],
-              f"{case}: device FASTA != host FASTA")
-        check(runs["device"][1] == runs["host"][1],
-              f"{case}: device stderr != host stderr")
-        fasta_out = runs["device"][0]
+            elif path == "mxu":
+                check(counts["chunk_vote"] > 0 and n_lanes == 0,
+                      f"{case}: mxu path must launch chunk_vote and no "
+                      f"lanes kernel {counts}")
+            else:
+                check(n_lanes == 0 and counts["chunk_vote"] == 0,
+                      f"{case}: {path} path launched a hand kernel "
+                      f"{counts}")
+        for path, _ in paths[1:]:
+            check(runs[path][0] == runs["host"][0],
+                  f"{case}: {path} FASTA != host FASTA")
+            check(runs[path][1] == runs["host"][1],
+                  f"{case}: {path} stderr != host stderr")
+        fasta_out = runs["host"][0]
         check(fasta_out.startswith(">") and fasta_out.count("\n") == 2,
               f"{case}: malformed FASTA")
-        print(f"e2e {case}: device FASTA == host FASTA "
+        print(f"e2e {case}: lanes, mxu and xla FASTA == host FASTA "
               f"({len(fasta_out)} bytes), stderr equal")
     print(f"peak device memory {torch.cuda.max_memory_allocated()} B")
 
-    # -- phase 5: timings ---------------------------------------------
-    lib_a = vote_lanes._kernel()
-    starts = torch.from_numpy(vote_lanes.tile_row_start(
-        e_bt.cpu().numpy(), e_ntiles, R_SUB // 4)).to(dev)
-    out_a = torch.empty_like(e_counts)
+    # -- phase 5: the other entry points at full size -----------------
+    t0 = time.monotonic()
+    host_counts, _, _, thr = pr.fold(name, thresholds=(5, 0.5, 0.2))
+    host_counts = torch.from_numpy(host_counts.copy())
+    valid_thr, invalid_thr, low = (a.copy() for a in thr)
+    orig_id = _orig_ids_for_seq(seq, vocab)
+    _, host_status = binding.consensus_dense_native(
+        host_counts.numpy(), valid_thr, invalid_thr, low, orig_id)
+    host_status = host_status.copy()
+
+    def pad(a, fill, dtype):
+        out = np.full(p_pad, fill, dtype=dtype)
+        out[:P] = a
+        return torch.from_numpy(out).to(dev)
+
+    i32max = np.int32(2**31 - 1)
+    thr_args = (pad(valid_thr, i32max, np.int32),
+                pad(invalid_thr, i32max, np.int32), pad(low, True, bool),
+                pad(orig_id, 0, np.int32))
+
+    def check_path(label, counts, want_launch):
+        got = read_counts()
+        check(got[want_launch] > 0,
+              f"{label}: {want_launch} not launched {got}")
+        check(torch.equal(counts.cpu(), host_counts),
+              f"{label}: counts != host fold counts")
+        print(f"path {label}: counts == host fold, launches {got}")
+
+    for body, vb in (("packed", h_vb8), ("cmp", h_vb8.view(np.int8))):
+        model = LanesPolisher(p_pad, dev, R_SUB, TILE_W, body=body)
+        zero_counts()
+        counts, _, status = model.forward_pack(vb, h_bt8, *thr_args,
+                                               ov_pos=b_ov[0],
+                                               ov_vid=b_ov[1])
+        check(np.array_equal(status[:P].cpu().numpy(), host_status),
+              f"LanesPolisher body {body}: status != host consensus")
+        check_path(f"LanesPolisher(body={body!r}).forward_pack",
+                   counts[:, :P], "lanes_vote_bytes")
+    del h_vb8, model, counts, status
+
+    ev_pos, ev_vid, _ = pr.events(name)
+    print(f"E. coli events: {ev_pos.size}")
+    zero_counts()
+    counts = vote_lanes.dense_counts_lanes(ev_pos, ev_vid, P,
+                                           body="packed8", cap=True,
+                                           device=dev)
+    check_path("dense_counts_lanes(body='packed8', cap=True)", counts,
+               "lanes_vote_packed8")
+    for fused, k in (("split", 1), ("fused", 1), ("unfused", 1),
+                     ("unfused", 2)):
+        zero_counts()
+        counts = vote_chunks.dense_counts_chunks(ev_pos, ev_vid, P,
+                                                 fused=fused,
+                                                 chunks_per_step=k,
+                                                 device=dev)
+        check_path(f"dense_counts_chunks(fused={fused!r}, "
+                   f"chunks_per_step={k})", counts, "chunk_vote")
+    del ev_pos, ev_vid, counts
+    pr.close()
+    print(f"phase 5 (entry points): {time.monotonic() - t0:.1f} s")
+
+    # -- phase 6: timings ---------------------------------------------
     stream = torch.cuda.current_stream().cuda_stream
+    lib_l = vote_lanes._kernel()
+    lib_c = vote_chunks._kernel()
+    width = 8 * e_ntiles * TILE_W
+    out_l = torch.empty_like(e_counts)
 
-    def run_a():
-        check(lib_a.lanes_vote_packed4(e_vb.data_ptr(), starts.data_ptr(),
-                                       out_a.data_ptr(), e_ntiles, TILE_W,
-                                       stream) == 0, "lanes launch")
+    def lanes_timing(entry, body, vb, bt):
+        rpb = vote_lanes._rows_per_block(R_SUB, body)
+        starts = torch.from_numpy(vote_lanes.tile_row_start(
+            bt.cpu().numpy(), e_ntiles, rpb)).to(dev)
+        fn = getattr(lib_l, entry)
 
-    lib_b = vote_chunks._kernel()
-    out_b = torch.zeros((8, ov_tiles * 256), dtype=torch.int32, device=dev)
+        def run():
+            check(fn(vb.data_ptr(), starts.data_ptr(), out_l.data_ptr(),
+                     e_ntiles, TILE_W, stream) == 0, f"{entry} launch")
 
-    def run_b():  # the zero-fill is part of producing the output
-        out_b.zero_()
-        check(lib_b.chunk_vote_i32(o_cp.data_ptr(), o_cv.data_ptr(),
-                                   o_ct.data_ptr(), o_ct.shape[0],
-                                   out_b.data_ptr(), ov_tiles, stream) == 0,
-              "chunk launch")
+        ms = cuda_ms(run, TIMED_LAUNCHES)
+        plain = cuda_ms(lambda: vote_lanes.lanes_counts_plain(
+            vb, bt, e_ntiles, R_SUB, TILE_W, body), 3)
+        keys = lanes_keys(vb, bt, e_ntiles, R_SUB, TILE_W, body)
+        lib = cuda_ms(lambda: torch.bincount(keys, minlength=width), 3)
+        votes = int(keys.numel())
+        n_bytes = (vb.numel() * vb.element_size() + bt.numel() * 4
+                   + width * 4)
+        return ms, plain, lib, votes, n_bytes
 
-    a_ms = cuda_ms(run_a, 50)
-    a_plain = cuda_ms(lambda: vote_lanes.lanes_counts_plain(
-        e_vb, e_bt, e_ntiles, R_SUB, TILE_W), 3)
-    keys_a = lanes_keys(e_vb, e_bt, e_ntiles, R_SUB, TILE_W)
-    a_lib = cuda_ms(lambda: torch.bincount(
-        keys_a, minlength=8 * e_ntiles * TILE_W), 3)
-    a_votes = int(keys_a.numel())
-    del keys_a
-    b_ms = cuda_ms(run_b, 50)
-    b_plain = cuda_ms(lambda: vote_chunks.chunk_counts_plain(
-        o_cp, o_cv, o_ct, ov_tiles), 5)
-    keys_b = chunk_keys(o_cp, o_cv, o_ct, ov_tiles)
-    b_lib = cuda_ms(lambda: torch.bincount(
-        keys_b, minlength=8 * ov_tiles * 256), 5)
-    b_votes = int(keys_b.numel())
+    def chunk_timing(fn, cp, cv, ct, n_tiles):
+        out = torch.zeros((8, n_tiles * 256), dtype=torch.int32, device=dev)
 
-    a_bytes = (e_vb.numel() * 4 + e_bt.numel() * 4
-               + 8 * e_ntiles * TILE_W * 4)
-    b_bytes = (o_cp.numel() * 4 + o_cv.numel() * 4 + o_ct.numel() * 4
-               + 8 * ov_tiles * 256 * 4)
-    a_bound, a_by = bound(a_bytes, a_votes)
-    b_bound, b_by = bound(b_bytes, b_votes)
-    print(f"lanes kernel: {a_ms:.4f} ms for {a_votes} votes "
-          f"({a_votes / a_ms / 1e6:.2f} G votes/s), {a_bytes} B moved, "
-          f"{a_bytes / a_ms / 1e9:.3f} TB/s; plain {a_plain:.3f} ms; "
-          f"torch.bincount {a_lib:.3f} ms; bound {a_bound:.4f} ms "
-          f"({a_bound / a_ms:.1%} of it)")
-    print(f"chunk kernel: {b_ms:.4f} ms for {b_votes} votes in "
-          f"{o_ct.shape[0]} chunks, {b_bytes} B moved, "
-          f"{b_bytes / b_ms / 1e9:.3f} TB/s; plain {b_plain:.3f} ms; "
-          f"torch.bincount {b_lib:.3f} ms; bound {b_bound:.4f} ms "
-          f"({b_bound / b_ms:.1%} of it)")
+        def run():  # the zero-fill is part of producing the output
+            out.zero_()
+            check(fn(cp.data_ptr(), cv.data_ptr(), ct.data_ptr(),
+                     ct.shape[0], out.data_ptr(), n_tiles, 256, 8, 1,
+                     stream) == 0, "chunk_vote launch")
 
+        ms = cuda_ms(run, TIMED_LAUNCHES)
+        plain = cuda_ms(lambda: vote_chunks.chunk_counts_plain(
+            cp, cv, ct, n_tiles), 3)
+        keys = chunk_keys(cp, cv, ct, n_tiles)
+        lib = cuda_ms(lambda: torch.bincount(
+            keys, minlength=8 * n_tiles * 256), 3)
+        votes = int(keys.numel())
+        n_bytes = (cp.numel() * cp.element_size() * 2 + ct.numel() * 4
+                   + 8 * n_tiles * 256 * 4)
+        return ms, plain, lib, votes, n_bytes
+
+    timed = {
+        "lanes_vote_packed4": lanes_timing("lanes_vote_packed4", "packed4",
+                                           e_vb, e_bt),
+        "lanes_vote_bytes": lanes_timing("lanes_vote_bytes", "packed",
+                                         b_vb, b_bt),
+        "lanes_vote_packed8": lanes_timing("lanes_vote_packed8", "packed8",
+                                           n_vb, b_bt),
+        "chunk_vote": chunk_timing(lib_c.chunk_vote_u8, u_cp, u_cv, u_ct,
+                                   u_tiles),
+        "chunk_vote (overflow fold)": chunk_timing(
+            lib_c.chunk_vote_i32, o_cp, o_cv, o_ct, ov_tiles),
+    }
+    inputs = {
+        "lanes_vote_packed4": "E. coli packed4 pack",
+        "lanes_vote_bytes": "E. coli byte pack (uint8)",
+        "lanes_vote_packed8": "E. coli packed8 pack",
+        "chunk_vote": "E. coli events, uint8 chunks (the mxu path)",
+        "chunk_vote (overflow fold)": "E. coli overflow chunks (int32)",
+    }
+    bounds = {}
+    for label, (ms, plain, lib, votes, n_bytes) in timed.items():
+        b_ms, b_by = bound(n_bytes, votes)
+        bounds[label] = (b_ms, b_by)
+        print(f"{label} on {inputs[label]}: {ms:.4f} ms for {votes} votes "
+              f"({votes / ms / 1e6:.2f} G votes/s), {n_bytes} B moved, "
+              f"{n_bytes / ms / 1e9:.3f} TB/s; plain {plain:.3f} ms; "
+              f"torch.bincount {lib:.3f} ms; bound {b_ms:.4f} ms "
+              f"({b_ms / ms:.1%} of it)")
+
+    def entry(name, source, replaces, label):
+        ms, plain, lib, _, _ = timed[label]
+        return {"name": name, "route": "cuda",
+                "source": f"polypolish_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
+                "bound_ms": bounds[label][0], "bound_by": bounds[label][1],
+                "library_ms": lib}
+
+    vl, vp = "polypolish_tpu/ops/vote_lanes.py", \
+        "polypolish_tpu/ops/vote_pallas.py"
     kernels = [
-        {"name": "lanes_vote_packed4", "route": "cuda",
-         "source": "polypolish_tpu_torch/csrc/lanes_vote.cu",
-         "replaces": "polypolish_tpu/ops/vote_lanes.py:143",
-         "launches": launches["lanes"], "max_abs_err": errs["lanes"],
-         "ms": a_ms, "plain_ms": a_plain, "bound_ms": a_bound,
-         "bound_by": a_by, "library_ms": a_lib},
-        {"name": "chunk_vote", "route": "cuda",
-         "source": "polypolish_tpu_torch/csrc/chunk_vote.cu",
-         "replaces": "polypolish_tpu/ops/vote_pallas.py:144",
-         "launches": launches["chunks"], "max_abs_err": errs["chunks"],
-         "ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bound,
-         "bound_by": b_by, "library_ms": b_lib},
+        entry("lanes_vote_packed4", "lanes_vote.cu", f"{vl}:143",
+              "lanes_vote_packed4"),
+        entry("lanes_vote_bytes", "lanes_vote.cu",
+              f"{vl}:169 (packed), {vl}:178 (cmp)", "lanes_vote_bytes"),
+        entry("lanes_vote_packed8", "lanes_vote.cu", f"{vl}:106",
+              "lanes_vote_packed8"),
+        entry("chunk_vote", "chunk_vote.cu",
+              f"{vp}:144 (split), {vp}:99 (fused), {vp}:60 (unfused)",
+              "chunk_vote"),
     ]
+    ov = timed["chunk_vote (overflow fold)"]
+    kernels[-1].update({"overflow_fold_ms": ov[0],
+                        "overflow_fold_plain_ms": ov[1],
+                        "overflow_fold_bound_ms":
+                            bounds["chunk_vote (overflow fold)"][0],
+                        "overflow_fold_library_ms": ov[2]})
+    for k in kernels:
+        check(k["launches"] > 0 and k["max_abs_err"] == 0,
+              f"kernel {k['name']}: {k['launches']} launches, max err "
+              f"{k['max_abs_err']}")
     shutil.rmtree(DATA_DIR, ignore_errors=True)
     print(f"chip_smoke total {time.monotonic() - t_start:.1f} s")
     print(card_line())

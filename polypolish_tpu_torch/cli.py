@@ -5,11 +5,15 @@ This slice of the port carries the ``polish`` subcommand:
 
   python -m polypolish_tpu_torch polish [--debug FILE] [-i 0.2] [-v 0.5]
       [-m 10] [-d 5] [--careful] [--threads N]
-      [--backend device|host] [--device cuda|cpu] assembly sam [sam ...]
+      [--backend device|host|xla] [--kernel-variant lanes|mxu]
+      [--device cuda|cpu] assembly sam [sam ...]
 
 ``--backend device`` (default) counts votes with the port's CUDA kernels
-on ``--device`` (default cuda; cpu runs their plain PyTorch versions);
-``--backend host`` runs the C++ fold and consensus.
+on ``--device`` (default cuda; cpu runs their plain PyTorch versions):
+the lanes vote kernel (``--kernel-variant lanes``, default) or the chunk
+vote kernel (``mxu``); ``--backend xla`` counts the chunk layout with a
+torch scatter-add on ``--device``; ``--backend host`` runs the C++ fold
+and consensus.
 """
 
 from __future__ import annotations
@@ -72,9 +76,15 @@ def build_parser() -> argparse.ArgumentParser:
         "output is bit-identical for any value)",
     )
     p.add_argument(
-        "--backend", default="device", choices=("device", "host"),
+        "--backend", default="device", choices=("device", "host", "xla"),
         help="Vote/consensus backend: 'device' (the CUDA kernels, "
-        "default) or 'host' (the C++ fold)",
+        "default), 'host' (the C++ fold) or 'xla' (a torch scatter-add "
+        "on --device)",
+    )
+    p.add_argument(
+        "--kernel-variant", default="lanes", choices=("lanes", "mxu"),
+        help="Vote kernel of --backend device: 'lanes' (the lanes vote "
+        "kernel, default) or 'mxu' (the chunk vote kernel)",
     )
     p.add_argument(
         "--device", default="cuda", choices=("cuda", "cpu"),
@@ -104,7 +114,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             args.max_errors, args.min_depth, args.careful,
             args.assembly, args.sam,
             backend=args.backend, n_threads=args.threads,
-            device=args.device,
+            device=args.device, kernel_variant=args.kernel_variant,
         )
     except PolypolishError as e:
         render_error_and_exit(e)

@@ -223,6 +223,50 @@ class ParsedRuns:
             return None
         return LanesPack(self._lib, lv, r_sub, tile_w, packed4=packed4)
 
+    # -- raw access ----------------------------------------------------
+    def raw(self):
+        """Zero-copy numpy views of the run arrays (valid until close):
+        (run_contig, run_start, run_len, run_k, vocab_bytes, ov_idx,
+        ov_vid, run_poff).  vocab_bytes is the PHYSICAL buffer: a run's
+        bytes live at run_poff[r] : run_poff[r]+run_len[r], and two runs
+        may share one range (zero-copy '*'-secondary reuse); ov_idx
+        holds physical byte indices."""
+        v = self._view.contents
+        return (
+            _as_np(v.run_contig, v.n_runs, np.int32),
+            _as_np(v.run_start, v.n_runs, np.int32),
+            _as_np(v.run_len, v.n_runs, np.int32),
+            _as_np(v.run_k, v.n_runs, np.int32),
+            _as_np(v.vocab_bytes, v.n_events, np.uint8),
+            _as_np(v.ov_idx, v.n_overflow, np.int64),
+            _as_np(v.ov_vid, v.n_overflow, np.int32),
+            _as_np(v.run_poff, v.n_runs, np.int64),
+        )
+
+    def events(self, contig_name: Optional[str] = None):
+        """Expand runs to (pos i64, vid i32, weight f64) event arrays in
+        stream order (optionally one contig's): the input of the
+        event-stream packers (vote_chunks.prepare_chunks,
+        vote_lanes.prepare_lanes)."""
+        rc, rs, rl, rk, vb, ov_i, ov_v, poff = self.raw()
+        vbid = vb.astype(np.int32)
+        if ov_i.size:
+            vbid[ov_i] = ov_v
+        # logical event -> run index, then gather through the physical
+        # per-run offsets (shared ranges gather the same bytes)
+        ends = np.cumsum(rl.astype(np.int64))
+        starts = ends - rl
+        run_of = np.repeat(np.arange(rc.size, dtype=np.int64), rl)
+        in_run = np.arange(run_of.size, dtype=np.int64) - starts[run_of]
+        vid = vbid[poff[run_of] + in_run]
+        pos = rs.astype(np.int64)[run_of] + in_run
+        weight = (1.0 / rk.astype(np.float64))[run_of]
+        if contig_name is None:
+            return pos, vid, weight
+        cid = self.contig_names.index(contig_name)
+        mask = rc[run_of] == cid
+        return pos[mask], vid[mask], weight[mask]
+
 
 def parse_runs(
     filenames: Sequence[str],

@@ -12,14 +12,18 @@ events carry position -1 (int32 layout, ``prepare_chunks``) or vocab 255
 ``chunk_counts`` turns a chunk stream into the (8, n_tiles*tile_p) int32
 counts: on CUDA tensors it launches the hand-written kernel
 ``csrc/chunk_vote.cu``; on CPU tensors it runs ``chunk_counts_plain``,
-the plain PyTorch version of the same function.  On the main path it
-folds the cap-overflow list of the lanes pack.
+the plain PyTorch version of the same function.  It folds the
+cap-overflow list of the lanes pack, and it counts the whole pileup on
+the mxu polish path and in ``dense_counts_chunks``.  The JAX package's
+three kernel variants (``split``, ``fused``, ``unfused``) lay this one
+function onto the TPU's matrix unit in three ways; one Hopper kernel
+serves all three.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,6 +37,20 @@ E_B = E_SUB * E_LANE  # events per chunk
 # Chunk streams longer than this are rounded to a multiple of it by the
 # packers (the JAX kernel's slab contract; this kernel takes any count).
 MAX_CHUNKS_PER_CALL = 32768
+MAX_TILE_P = 2048  # the kernel's histogram: 32 * tile_p bytes of smem
+VARIANTS = ("unfused", "fused", "split")
+
+
+def _variant_name(fused) -> str:
+    """``fused`` accepts the legacy bools (False/True) or a variant name
+    ('unfused' | 'fused' | 'split')."""
+    if fused is True:
+        return "fused"
+    if fused is False:
+        return "unfused"
+    if fused in VARIANTS:
+        return fused
+    raise ValueError(f"unknown kernel variant: {fused!r}")
 
 
 def prepare_chunks(
@@ -42,12 +60,17 @@ def prepare_chunks(
     tile_p: int = TILE_P,
     e_sub: int = E_SUB,
     use_native: bool = True,
+    chunk_multiple: int = 1,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
     """Bucket dense-tier events by position tile and pad to chunks.
 
     Returns (chunk_pos (C*e_sub, 128) int32, chunk_vocab likewise,
     chunk_tile (C,) int32, n_tiles).  use_native takes the C++
-    counting sort (layout-identical to the numpy version below)."""
+    counting sort (layout-identical to the numpy version below).
+    chunk_multiple rounds each tile's chunk count up to this multiple
+    (required by chunk_counts' chunks_per_step; numpy packer only)."""
+    if chunk_multiple > 1:
+        use_native = False
     if use_native:
         from polypolish_tpu_torch.native import binding
 
@@ -74,6 +97,9 @@ def prepare_chunks(
 
     per_tile = np.bincount(tile, minlength=n_tiles)
     chunks_per_tile = np.maximum(1, -(-per_tile // e_b))
+    if chunk_multiple > 1:
+        k = chunk_multiple
+        chunks_per_tile = (-(-chunks_per_tile // k)) * k
     n_chunks = int(chunks_per_tile.sum())
 
     flat_pos = np.full(n_chunks * e_b, -1, dtype=np.int32)
@@ -90,18 +116,22 @@ def prepare_chunks(
     chunk_pos = flat_pos.reshape(n_chunks * e_sub, E_LANE)
     chunk_vocab = flat_vocab.reshape(n_chunks * e_sub, E_LANE)
     return _pad_chunk_count(chunk_pos, chunk_vocab, chunk_tile, n_tiles,
-                            e_sub=e_sub)
+                            e_sub=e_sub, multiple=chunk_multiple)
 
 
-def _pad_chunk_count(chunk_pos, chunk_vocab, chunk_tile, n_tiles, e_sub):
+def _pad_chunk_count(chunk_pos, chunk_vocab, chunk_tile, n_tiles, e_sub,
+                     multiple: int = 1):
     """Round the chunk count up to a geometric bucket (<= 12.5% extra),
-    and past MAX_CHUNKS_PER_CALL to a multiple of it.  Pad chunks carry
-    only pad events (pos -1) and map to the last tile."""
+    then to ``multiple``, and past MAX_CHUNKS_PER_CALL to a multiple of
+    it.  Pad chunks carry only pad events (pos -1) and map to the last
+    tile."""
     n_chunks = chunk_tile.shape[0]
     n = max(int(n_chunks), 8)
     shift = max(n.bit_length() - 1 - 3, 0)
     step = 1 << shift
     padded = -(-n // step) * step
+    if multiple > 1:
+        padded = -(-padded // multiple) * multiple
     if padded > MAX_CHUNKS_PER_CALL:
         padded = -(-padded // MAX_CHUNKS_PER_CALL) * MAX_CHUNKS_PER_CALL
     if padded == n_chunks:
@@ -125,6 +155,14 @@ def _check_chunk_args(chunk_pos: torch.Tensor, chunk_vocab: torch.Tensor,
             or chunk_vocab.dtype != chunk_pos.dtype:
         raise ValueError("chunk_pos and chunk_vocab must both be int32 "
                          "or both uint8")
+    if tile_p < E_LANE or tile_p % E_LANE or tile_p > MAX_TILE_P:
+        raise ValueError(f"tile_p must be a multiple of {E_LANE} up to "
+                         f"{MAX_TILE_P}; got {tile_p}")
+    if chunk_pos.dtype == torch.uint8 and tile_p > 256:
+        raise ValueError(f"the uint8 layout holds tile_p <= 256; got "
+                         f"{tile_p}")
+    if e_sub < 1:
+        raise ValueError(f"e_sub must be >= 1; got {e_sub}")
     n_chunks = chunk_tile.shape[0]
     want = (n_chunks * e_sub, E_LANE)
     if tuple(chunk_pos.shape) != want or tuple(chunk_vocab.shape) != want:
@@ -140,6 +178,26 @@ def _check_chunk_args(chunk_pos: torch.Tensor, chunk_vocab: torch.Tensor,
     if not (chunk_pos.is_contiguous() and chunk_vocab.is_contiguous()
             and chunk_tile.is_contiguous()):
         raise ValueError("chunk tensors must be contiguous")
+
+
+def _check_steps(chunk_tile: torch.Tensor, chunks_per_step: int) -> None:
+    """JAX's chunks_per_step contract: the chunk count is a multiple of
+    k and each run of k chunks shares one tile (prepare_chunks with
+    chunk_multiple=k gives both)."""
+    k = chunks_per_step
+    if k < 1:
+        raise ValueError(f"chunks_per_step must be >= 1; got {k}")
+    if k == 1:
+        return
+    n = chunk_tile.shape[0]
+    if n % k:
+        raise ValueError(f"{n} chunks are not a multiple of "
+                         f"chunks_per_step={k}")
+    steps = chunk_tile.view(n // k, k)
+    if not bool((steps == steps[:, :1]).all()):
+        raise ValueError(f"a step of chunks_per_step={k} chunks straddles "
+                         "a tile boundary; pad each tile's chunks with "
+                         f"prepare_chunks(chunk_multiple={k})")
 
 
 def chunk_counts_plain(chunk_pos: torch.Tensor, chunk_vocab: torch.Tensor,
@@ -180,7 +238,7 @@ def _kernel() -> ctypes.CDLL:
             fn.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-                ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ]
             fn.restype = ctypes.c_int
         _kernel_lib = lib
@@ -189,26 +247,31 @@ def _kernel() -> ctypes.CDLL:
 
 def chunk_counts(chunk_pos: torch.Tensor, chunk_vocab: torch.Tensor,
                  chunk_tile: torch.Tensor, n_tiles: int,
-                 tile_p: int = TILE_P, e_sub: int = E_SUB) -> torch.Tensor:
+                 tile_p: int = TILE_P, e_sub: int = E_SUB,
+                 chunks_per_step: int = 1,
+                 variant: Union[bool, str] = "split") -> torch.Tensor:
     """(8, n_tiles*tile_p) int32 vote counts of a chunk stream.
 
     chunk_pos / chunk_vocab: (C*e_sub, 128), both int32 (pad pos -1) or
-    both uint8 (pad vocab 255); chunk_tile: int32 (C,).  CUDA tensors
-    launch the chunk vote kernel (csrc/chunk_vote.cu, tile_p 256 and
-    e_sub 8 only) on the current stream; CPU tensors run
-    chunk_counts_plain.  ``chunk_counts.launches`` counts kernel
-    launches."""
+    both uint8 (pad vocab 255, tile_p <= 256); chunk_tile: int32 (C,);
+    tile_p a multiple of 128 up to 2048.  ``variant`` names the JAX
+    kernel variant ('split', 'fused', 'unfused' or the legacy bools);
+    all of them compute this one function, and one kernel serves them.
+    chunks_per_step = k > 1 has each CTA count k chunks, which must
+    share a tile (checked; raises otherwise).  CUDA tensors launch the
+    chunk vote kernel (csrc/chunk_vote.cu) on the current stream; CPU
+    tensors run chunk_counts_plain.  ``chunk_counts.launches`` counts
+    kernel launches."""
+    _variant_name(variant)
+    _check_chunk_args(chunk_pos, chunk_vocab, chunk_tile, n_tiles, tile_p,
+                      e_sub)
+    _check_steps(chunk_tile, chunks_per_step)
     if chunk_pos.device.type == "cpu":
         return chunk_counts_plain(chunk_pos, chunk_vocab, chunk_tile,
                                   n_tiles, tile_p, e_sub)
     if chunk_pos.device.type != "cuda":
         raise ValueError(f"chunk_counts: unsupported device "
                          f"{chunk_pos.device}")
-    _check_chunk_args(chunk_pos, chunk_vocab, chunk_tile, n_tiles, tile_p,
-                      e_sub)
-    if tile_p != TILE_P or e_sub != E_SUB:
-        raise ValueError(f"the chunk vote kernel takes tile_p={TILE_P}, "
-                         f"e_sub={E_SUB}; got {tile_p}, {e_sub}")
     out = torch.zeros((DENSE_V, n_tiles * tile_p), dtype=torch.int32,
                       device=chunk_pos.device)
     lib = _kernel()
@@ -218,7 +281,8 @@ def chunk_counts(chunk_pos: torch.Tensor, chunk_vocab: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(chunk_pos.data_ptr(), chunk_vocab.data_ptr(),
                  chunk_tile.data_ptr(), chunk_tile.shape[0],
-                 out.data_ptr(), n_tiles, stream)
+                 out.data_ptr(), n_tiles, tile_p, e_sub, chunks_per_step,
+                 stream)
     if err != 0:
         raise RuntimeError(f"chunk_vote launch failed: CUDA error {err}")
     chunk_counts.launches += 1
@@ -226,3 +290,34 @@ def chunk_counts(chunk_pos: torch.Tensor, chunk_vocab: torch.Tensor,
 
 
 chunk_counts.launches = 0
+
+
+def dense_counts_chunks(
+    pos: np.ndarray,
+    vocab: np.ndarray,
+    num_positions: int,
+    tile_p: int = TILE_P,
+    e_sub: int = E_SUB,
+    use_int8: bool = True,
+    fused: Union[bool, str] = "split",
+    chunks_per_step: int = 1,
+    device="cuda",
+) -> torch.Tensor:
+    """(8, P) int32 dense vote counts on ``device`` through the chunk
+    vote kernel (counterpart of dense_counts_pallas).  ``use_int8``
+    picked the TPU matrix unit's operand type; the counts are exact
+    either way, so it changes nothing here and is accepted for the same
+    calls.  chunks_per_step = k > 1 packs with chunk_multiple=k."""
+    del use_int8
+    variant = _variant_name(fused)
+    chunk_pos, chunk_vocab, chunk_tile, n_tiles = prepare_chunks(
+        pos, vocab, num_positions, tile_p, e_sub,
+        chunk_multiple=chunks_per_step,
+    )
+    out = chunk_counts(
+        torch.from_numpy(chunk_pos).to(device),
+        torch.from_numpy(chunk_vocab).to(device),
+        torch.from_numpy(chunk_tile).to(device), n_tiles, tile_p, e_sub,
+        chunks_per_step=chunks_per_step, variant=variant,
+    )
+    return out[:, :num_positions]

@@ -7,23 +7,32 @@ vocab id) at column ``p % tile_w`` of a row owned by tile
 ``p // tile_w``; a position's k-th event goes to the k-th row.  Empty
 slots (and sparse-tier events) hold 255.  Rows come in blocks of
 ``r_sub``; ``block_tile`` maps each block to its tile, tiles in order.
-The packed4 layout stores four byte-rows per int32 row (byte k of int32
-row q = byte-row 4q+k), the input of the lanes vote kernel.
+The kernel input comes in three row layouts, named by the JAX kernel's
+bodies:
 
-``lanes_counts`` turns a packed4 pack into the (8, n_tiles*tile_w)
-int32 counts: on a CUDA tensor it launches the hand-written kernel
-``csrc/lanes_vote.cu``; on a CPU tensor it runs ``lanes_counts_plain``,
-the plain PyTorch version of the same function.  Counts are exact
-integer sums, so both are bitwise equal to the host fold.
+- ``packed4``: int32 rows, four byte-rows each (byte k of int32 row q =
+  byte-row 4q+k);
+- ``packed`` and ``cmp``: the byte rows themselves, uint8 or int8 (the
+  two TPU bodies differ only in how the TPU reduced them);
+- ``packed8``: int32 rows, eight nibble-rows each (nibble k of row q =
+  byte-row 8q+k, nibble 15 = pad).
+
+``lanes_counts`` turns a pack into the (8, n_tiles*tile_w) int32
+counts: on a CUDA tensor it launches the layout's entry point of the
+hand-written kernel ``csrc/lanes_vote.cu``; on a CPU tensor it runs
+``lanes_counts_plain``, the plain PyTorch version of the same function.
+Counts are exact integer sums, so both are bitwise equal to the host
+fold.
 
 The packers here are numpy copies of the JAX package's
 (``prepare_lanes``, ``choose_rows_per_tile``, ``geom_pad``,
-``_pad_block_count``, ``to_packed4``); the native C++ twin is
-``pp_lanes_from_runs`` (native/runs.py ``ParsedRuns.lanes``).
+``_pad_block_count``, ``to_packed4``, ``to_packed8``); the native C++
+twin is ``pp_lanes_from_runs`` (native/runs.py ``ParsedRuns.lanes``).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional, Tuple
 
@@ -181,6 +190,25 @@ def prepare_lanes(
     return vb, block_tile, n_tiles
 
 
+def to_packed8(vb: np.ndarray, r_sub: int) -> np.ndarray:
+    """Reorder a (rows, tile_w) uint8 lane buffer into the packed8
+    NIBBLE layout: int32 (rows//8, tile_w) with 4-bit field k of each
+    lane = row 8q+k (dense vocab 0-7; any byte >= 8 — pad or
+    sparse-tier — maps to nibble 15, which counts nothing, like bytes
+    >= 8).  Counts are row-order-invariant, so this is bitwise-neutral;
+    the pack halves to about 0.5 B/event."""
+    rows, w = vb.shape
+    if rows % 8 or r_sub % 8:
+        raise ValueError(f"rows {rows} and r_sub {r_sub} must be multiples "
+                         "of 8")
+    nib = np.where(vb < DENSE_V, vb, 15).astype(np.uint32)
+    x = nib.reshape(rows // 8, 8, w)
+    out = np.zeros((rows // 8, w), np.uint32)
+    for k in range(8):
+        out |= x[:, k, :] << np.uint32(4 * k)
+    return out.view(np.int32)
+
+
 def to_packed4(vb: np.ndarray, r_sub: int) -> np.ndarray:
     """Reorder a (rows, tile_w) uint8 lane buffer into the packed4
     layout: int32 (rows//4, tile_w) with byte k of each lane = row
@@ -194,47 +222,83 @@ def to_packed4(vb: np.ndarray, r_sub: int) -> np.ndarray:
     return np.ascontiguousarray(x).view(np.int32).reshape(rows // 4, w)
 
 
+# body -> (byte-rows per array row, entry point of csrc/lanes_vote.cu)
+BODIES = {
+    "packed4": (4, "lanes_vote_packed4"),
+    "packed": (1, "lanes_vote_bytes"),
+    "cmp": (1, "lanes_vote_bytes"),
+    "packed8": (8, "lanes_vote_packed8"),
+}
+
+
+def _rows_per_block(r_sub: int, body: str) -> int:
+    """Array rows per block: r_sub byte-rows, except the packed4 (four
+    byte-rows per int32 row) and packed8 (eight nibble-rows per int32
+    row) layouts."""
+    if body not in BODIES:
+        raise ValueError(f"unknown lanes body {body!r}; expected one of "
+                         f"{sorted(BODIES)}")
+    per_row = BODIES[body][0]
+    if r_sub % per_row:
+        raise ValueError(f"body {body} needs r_sub % {per_row} == 0; got "
+                         f"r_sub={r_sub}")
+    return r_sub // per_row
+
+
 def _check_lanes_args(vb: torch.Tensor, block_tile: torch.Tensor,
-                      n_tiles: int, r_sub: int, tile_w: int) -> None:
-    if vb.dtype != torch.int32 or vb.dim() != 2 or vb.shape[1] != tile_w:
-        raise ValueError(f"vb must be int32 (rows, {tile_w}); got "
-                         f"{vb.dtype} {tuple(vb.shape)}")
+                      n_tiles: int, r_sub: int, tile_w: int,
+                      body: str) -> None:
+    rpb = _rows_per_block(r_sub, body)
+    dtypes = ((torch.uint8, torch.int8) if BODIES[body][0] == 1
+              else (torch.int32,))
+    if vb.dtype not in dtypes or vb.dim() != 2 or vb.shape[1] != tile_w:
+        raise ValueError(f"body {body}: vb must be {dtypes} (rows, "
+                         f"{tile_w}); got {vb.dtype} {tuple(vb.shape)}")
     if block_tile.dtype != torch.int32 or block_tile.dim() != 1:
         raise ValueError("block_tile must be a 1-D int32 tensor")
-    if r_sub % 4 or tile_w % 128 or n_tiles < 1:
+    if tile_w % 128 or n_tiles < 1:
         raise ValueError(f"bad geometry r_sub={r_sub} tile_w={tile_w} "
                          f"n_tiles={n_tiles}")
-    if vb.shape[0] != block_tile.shape[0] * (r_sub // 4):
+    if vb.shape[0] != block_tile.shape[0] * rpb:
         raise ValueError(f"vb has {vb.shape[0]} rows for "
-                         f"{block_tile.shape[0]} blocks of {r_sub // 4}")
+                         f"{block_tile.shape[0]} blocks of {rpb}")
     if vb.device != block_tile.device:
         raise ValueError("vb and block_tile must be on one device")
     if not (vb.is_contiguous() and block_tile.is_contiguous()):
         raise ValueError("vb and block_tile must be contiguous")
 
 
+def _slots(x: torch.Tensor, body: str) -> torch.Tensor:
+    """(m, w) array rows -> (m, w, slots) int32 slot values of the
+    body's layout (bytes read unsigned, nibbles 0-15)."""
+    if BODIES[body][0] == 1:
+        return x.view(torch.uint8).to(torch.int32)[:, :, None]
+    bits = 32 // BODIES[body][0]
+    shifts = torch.arange(0, 32, bits, dtype=torch.int32, device=x.device)
+    return (x[:, :, None] >> shifts) & ((1 << bits) - 1)
+
+
 def lanes_counts_plain(vb: torch.Tensor, block_tile: torch.Tensor,
                        n_tiles: int, r_sub: int = R_SUB,
-                       tile_w: int = TILE_W) -> torch.Tensor:
-    """Plain PyTorch version of the lanes vote kernel: unpack the four
-    bytes of every int32 slot, drop bytes >= 8, and accumulate ones at
-    (v, tile*tile_w + column) with index_put_.  Works in steps of
-    rows to bound its temporaries."""
-    _check_lanes_args(vb, block_tile, n_tiles, r_sub, tile_w)
+                       tile_w: int = TILE_W,
+                       body: str = "packed4") -> torch.Tensor:
+    """Plain PyTorch version of the lanes vote kernel: unpack the slots
+    of every array row, drop values >= 8, and accumulate ones at
+    (v, tile*tile_w + column) with index_put_.  Works in steps of rows
+    to bound its temporaries."""
+    _check_lanes_args(vb, block_tile, n_tiles, r_sub, tile_w, body)
     dev = vb.device
     width = n_tiles * tile_w
     out = torch.zeros(DENSE_V * width, dtype=torch.int32, device=dev)
     if block_tile.numel() and (int(block_tile.min()) < 0
                                or int(block_tile.max()) >= n_tiles):
         raise ValueError("block_tile entries must lie in [0, n_tiles)")
-    row_base = block_tile.to(torch.int64).repeat_interleave(r_sub // 4)
-    row_base *= tile_w
+    rpb = _rows_per_block(r_sub, body)
+    row_base = block_tile.to(torch.int64).repeat_interleave(rpb) * tile_w
     cols = torch.arange(tile_w, dtype=torch.int64, device=dev)
-    shifts = torch.tensor([0, 8, 16, 24], dtype=torch.int32, device=dev)
     step = max(1, _PLAIN_WORDS // tile_w)
     for r0 in range(0, vb.shape[0], step):
-        x = vb[r0:r0 + step]
-        b = (x[:, :, None] >> shifts) & 0xFF  # (m, tile_w, 4) bytes
+        b = _slots(vb[r0:r0 + step], body)  # (m, tile_w, slots)
         slot = row_base[r0:r0 + step, None] + cols[None, :]
         keys = b.to(torch.int64) * width + slot[:, :, None]
         keys = keys[b < DENSE_V]
@@ -252,18 +316,20 @@ def _kernel() -> ctypes.CDLL:
         from polypolish_tpu_torch import _build
 
         lib = _build.load("lanes_vote")
-        lib.lanes_vote_packed4.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.lanes_vote_packed4.restype = ctypes.c_int
+        for name in sorted({entry for _, entry in BODIES.values()}):
+            fn = getattr(lib, name)
+            fn.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+            ]
+            fn.restype = ctypes.c_int
         _kernel_lib = lib
     return _kernel_lib
 
 
 def tile_row_start(block_tile: np.ndarray, n_tiles: int,
                    rows_per_block: int) -> np.ndarray:
-    """(n_tiles + 1,) int64 first int32 row of each tile (and the row
+    """(n_tiles + 1,) int64 first array row of each tile (and the row
     count at the end) from a non-decreasing block->tile map; raises if
     the map is out of order or out of range."""
     bt = np.asarray(block_tile)
@@ -277,35 +343,84 @@ def tile_row_start(block_tile: np.ndarray, n_tiles: int,
 
 
 def lanes_counts(vb: torch.Tensor, block_tile: torch.Tensor, n_tiles: int,
-                 r_sub: int = R_SUB, tile_w: int = TILE_W) -> torch.Tensor:
-    """(8, n_tiles*tile_w) int32 vote counts of a packed4 lane pack.
+                 r_sub: int = R_SUB, tile_w: int = TILE_W,
+                 body: str = "packed4") -> torch.Tensor:
+    """(8, n_tiles*tile_w) int32 vote counts of a lane pack.
 
-    vb: int32 (n_blocks*r_sub/4, tile_w); block_tile: int32 (n_blocks,),
-    non-decreasing, on the same device.  A CUDA tensor launches the
+    vb: (n_blocks*r_sub/s, tile_w) rows of the body's layout (s = 4 and
+    int32 for packed4, 1 and uint8/int8 for packed and cmp, 8 and int32
+    for packed8); block_tile: int32 (n_blocks,), non-decreasing, on the
+    same device.  A CUDA tensor launches the body's entry point of the
     lanes vote kernel (csrc/lanes_vote.cu) on the current stream; a CPU
     tensor runs lanes_counts_plain.  ``lanes_counts.launches`` counts
-    kernel launches."""
+    kernel launches by entry point."""
     if vb.device.type == "cpu":
-        return lanes_counts_plain(vb, block_tile, n_tiles, r_sub, tile_w)
+        return lanes_counts_plain(vb, block_tile, n_tiles, r_sub, tile_w,
+                                  body)
     if vb.device.type != "cuda":
         raise ValueError(f"lanes_counts: unsupported device {vb.device}")
-    _check_lanes_args(vb, block_tile, n_tiles, r_sub, tile_w)
-    starts = tile_row_start(block_tile.cpu().numpy(), n_tiles, r_sub // 4)
+    _check_lanes_args(vb, block_tile, n_tiles, r_sub, tile_w, body)
+    starts = tile_row_start(block_tile.cpu().numpy(), n_tiles,
+                            _rows_per_block(r_sub, body))
     d_starts = torch.from_numpy(starts).to(vb.device)
     out = torch.empty((DENSE_V, n_tiles * tile_w), dtype=torch.int32,
                       device=vb.device)
-    lib = _kernel()
+    entry = BODIES[body][1]
+    fn = getattr(_kernel(), entry)
     with torch.cuda.device(vb.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.lanes_vote_packed4(
-            vb.data_ptr(), d_starts.data_ptr(), out.data_ptr(), n_tiles,
-            tile_w, stream,
-        )
+        err = fn(vb.data_ptr(), d_starts.data_ptr(), out.data_ptr(),
+                 n_tiles, tile_w, stream)
     if err != 0:
-        raise RuntimeError(f"lanes_vote_packed4 launch failed: CUDA error "
-                           f"{err}")
-    lanes_counts.launches += 1
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+    lanes_counts.launches[entry] += 1
     return out
 
 
-lanes_counts.launches = 0
+lanes_counts.launches = collections.Counter()
+
+
+def add_overflow_counts(counts: torch.Tensor, ov_pos, ov_vid
+                        ) -> torch.Tensor:
+    """Add the depth-stratified overflow events (vocab bytes at
+    positions whose depth exceeded the tile's row cap) onto the kernel
+    counts, in place.  Exact integer adds, bitwise-equal to having
+    packed them into lane slots.  Pad/sparse entries (vid >= 8 or
+    pos >= P) drop."""
+    from polypolish_tpu_torch.ops.vote import scatter_add_drop
+
+    dev = counts.device
+    return scatter_add_drop(
+        counts, torch.from_numpy(np.asarray(ov_vid)).to(dev),
+        torch.from_numpy(np.asarray(ov_pos)).to(dev),
+    )
+
+
+def dense_counts_lanes(
+    pos: np.ndarray,
+    vocab: np.ndarray,
+    num_positions: int,
+    r_sub: int = R_SUB,
+    tile_w: int = TILE_W,
+    body: str = "packed",
+    cap: bool = False,
+    device="cuda",
+) -> torch.Tensor:
+    """(8, P) int32 dense vote counts on ``device`` through the lanes
+    vote kernel with the given body's layout.  cap=True uses the
+    depth-stratified layout and adds the overflow events back with one
+    scatter-add."""
+    _rows_per_block(r_sub, body)
+    packed = prepare_lanes(pos, vocab, num_positions, r_sub, tile_w,
+                           cap=cap)
+    vb, block_tile, n_tiles = packed[:3]
+    if body == "packed4":
+        vb = to_packed4(vb, r_sub)
+    elif body == "packed8":
+        vb = to_packed8(vb, r_sub)
+    out = lanes_counts(torch.from_numpy(vb).to(device),
+                       torch.from_numpy(block_tile).to(device), n_tiles,
+                       r_sub, tile_w, body)
+    if cap and packed[3].size:
+        out = add_overflow_counts(out, packed[3], packed[4])
+    return out[:, :num_positions]

@@ -6,19 +6,26 @@ SAM file with the native run engine, then per contig compute the votes
 and the consensus and emit the polished FASTA to stdout (stats to
 stderr, optional per-base debug TSV).
 
-Two backends:
+Three backends (the JAX package's ``pallas`` is the port's
+``device``):
 
 - ``device`` (default): f64 depth and thresholds folded in C++ on the
-  host, the lane pack built in C++, votes counted by the lanes vote
-  kernel and the chunk vote kernel and the consensus decided on the
-  device (``models/polisher.py``), compact uint8 results fetched.  It
-  runs on ``device`` ("cuda" by default; "cpu" runs the kernels' plain
-  PyTorch versions).
+  host, then votes and consensus on ``device`` ("cuda" by default;
+  "cpu" runs the kernels' plain PyTorch versions).  ``kernel_variant``
+  picks the vote kernel: "lanes" (default) packs the lane layout in C++
+  and counts with the lanes vote kernel plus the chunk vote kernel over
+  the cap-overflow list (``LanesPolisher``), fetching compact uint8
+  results; "mxu" packs the uint8 chunk layout in C++ and counts the
+  whole pileup with the chunk vote kernel (``PolisherModel``).
+- ``xla``: the chunk layout of "mxu" counted by a torch scatter-add on
+  ``device`` (``PolisherModel(use_kernel=False)``; no hand kernel, as
+  the JAX package leaves it to XLA).
 - ``host``: the C++ fold of the (8, P) counts plus the C++ consensus —
-  an independent reference for the device path, never a fallback.
+  an independent reference for the device paths, never a fallback.
 
-Both are byte-identical to polypolish_tpu for the FASTA, the --debug
-TSV and the stderr narrative.
+All are byte-identical to polypolish_tpu (run with the same backend and
+POLYPOLISH_TPU_KERNEL) for the FASTA, the --debug TSV and the stderr
+narrative.
 """
 
 from __future__ import annotations
@@ -47,7 +54,8 @@ from polypolish_tpu_torch.utils.profiling import StageTimer
 from polypolish_tpu_torch.utils.timing import format_duration
 from polypolish_tpu_torch.vocab import DENSE_V, Vocab
 
-BACKENDS = ("device", "host")
+BACKENDS = ("device", "host", "xla")
+KERNEL_VARIANTS = ("lanes", "mxu")
 
 
 def fmt_f64(x: float) -> str:
@@ -87,17 +95,24 @@ def polish(
     n_threads: Optional[int] = None,
     device="cuda",
     timer: Optional[StageTimer] = None,
+    kernel_variant: str = "lanes",
 ) -> List[Tuple[str, int]]:
     """Run the full polish workflow; returns [(name, new_length)].
 
+    ``kernel_variant`` ("lanes" or "mxu") picks the vote kernel of
+    backend "device" (the JAX package's POLYPOLISH_TPU_KERNEL).
     ``timer`` (optional) collects wall seconds per stage: parse, fold,
-    pack, upload, kernel_a, kernel_b, consensus, fetch, finish."""
+    pack, upload, kernel_a, kernel_b, scatter, consensus, fetch,
+    finish."""
     start_time = time.monotonic()
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}; got "
                          f"{backend!r}")
+    if kernel_variant not in KERNEL_VARIANTS:
+        raise ValueError(f"kernel_variant must be one of "
+                         f"{KERNEL_VARIANTS}; got {kernel_variant!r}")
     # the host backend runs no torch code, so it needs no device
-    dev = resolve_device(device) if backend == "device" else None
+    dev = resolve_device(device) if backend != "host" else None
     if timer is None:
         timer = StageTimer()
     if out is None:
@@ -118,6 +133,7 @@ def polish(
         new_lengths = polish_sequences(
             debug, fraction_invalid, fraction_valid, min_depth,
             seq_names, votes, vocab, out, backend, runs_handle, dev, timer,
+            kernel_variant,
         )
     finally:
         runs_handle.close()
@@ -252,7 +268,7 @@ def _load_alignments_runs(
 def polish_sequences(
     debug, fraction_invalid, fraction_valid, min_depth,
     seq_names, votes, vocab, out: TextIO, backend: str,
-    runs_handle, device: torch.device, timer: StageTimer,
+    runs_handle, device: torch.device, timer: StageTimer, variant: str,
 ) -> List[Tuple[str, int]]:
     """Reference: polish.rs:137-154."""
     log.section_header("Polishing assembly sequences")
@@ -270,7 +286,7 @@ def polish_sequences(
             new_length = polish_one_sequence(
                 fraction_invalid, fraction_valid, min_depth,
                 name, description, contig, vocab, out, backend, debug_file,
-                runs_handle, device, timer,
+                runs_handle, device, timer, variant,
             )
             new_lengths.append((name, new_length))
     finally:
@@ -306,9 +322,10 @@ def _orig_ids_for_seq(seq: str, vocab: Vocab) -> np.ndarray:
 def polish_one_sequence(
     fraction_invalid, fraction_valid, min_depth,
     name, description, contig, vocab, out: TextIO, backend: str, debug_file,
-    runs_handle, device: torch.device, timer: StageTimer,
+    runs_handle, device: torch.device, timer: StageTimer, variant: str,
 ) -> int:
-    """Reference: polish.rs:157-193 (vectorised)."""
+    """Reference: polish.rs:157-193 (vectorised).  ``variant`` is
+    backend device's vote kernel: "lanes" or "mxu"."""
     seq_len = contig.length
     log.eprint(f"Polishing {name} ({log.thousands(seq_len)} bp):")
 
@@ -328,6 +345,7 @@ def polish_one_sequence(
         (counts, new_id, status, depth, sparse,
          valid_thr, invalid_thr) = _polish_device_runs(
             runs_handle, name, seq_len, orig_id, thresholds, device, timer,
+            backend, variant,
         )
 
     with timer.stage("finish"):
@@ -402,13 +420,17 @@ def _pad_bucket(n: int, granularity_bits: int = 3, minimum: int = 4096) -> int:
 
 def _polish_device_runs(
     runs_handle, name, seq_len, orig_id, thresholds, device, timer,
+    backend, variant,
 ):
-    """Device path fed by the native run pipeline: depth and thresholds
+    """Device paths fed by the native run pipeline: depth and thresholds
     folded in C++ (sequential-exact f64), sparse tier from the overflow
-    list, votes and consensus on ``device`` from the native packed4 lane
-    pack (the lanes branch of the JAX package's _polish_device_runs).
-    Returns (counts (8, seq_len) tensor, new_id, status, depth, sparse,
-    valid_thr, invalid_thr)."""
+    list, votes and consensus on ``device``: from the native packed4
+    lane pack (backend device, variant lanes: the lanes branch of the
+    JAX package's _polish_device_runs), or from the native uint8 chunk
+    layout through ``PolisherModel`` (variant mxu on the chunk vote
+    kernel; backend xla on a torch scatter-add).  Returns (counts
+    (8, seq_len) tensor, new_id, status, depth, sparse, valid_thr,
+    invalid_thr)."""
     from polypolish_tpu_torch.models.polisher import LanesPolisher
 
     with timer.stage("fold"):
@@ -426,7 +448,6 @@ def _polish_device_runs(
         out[:seq_len] = arr
         return torch.from_numpy(out).to(device)
 
-    model = LanesPolisher(p_pad, device, R_SUB, TILE_W, timer=timer)
     with timer.stage("upload"):
         thr_args = (
             pad(valid_thr, i32max, np.int32),
@@ -434,6 +455,14 @@ def _polish_device_runs(
             pad(low_depth, True, bool),
             pad(orig_id, 0, np.int32),
         )
+    if backend == "xla" or variant == "mxu":
+        counts, new_id, status = _vote_chunks_runs(
+            runs_handle, name, seq_len, p_pad, thr_args, device, timer,
+            use_kernel=backend == "device",
+        )
+        return counts, new_id, status, depth, sparse, valid_thr, invalid_thr
+
+    model = LanesPolisher(p_pad, device, R_SUB, TILE_W, timer=timer)
     with timer.stage("pack"):
         lanes = runs_handle.lanes(
             name, model.r_sub, model.tile_w, num_positions=p_pad,
@@ -462,6 +491,33 @@ def _polish_device_runs(
     new_id = new_id.astype(np.int32)
     counts = counts_t[:, :seq_len]
     return counts, new_id, status, depth, sparse, valid_thr, invalid_thr
+
+
+def _vote_chunks_runs(runs_handle, name, seq_len, p_pad, thr_args, device,
+                      timer, use_kernel):
+    """Votes and consensus of one contig through ``PolisherModel`` over
+    the native uint8 chunk layout (pad vocab 255, 2 B/event), or over
+    the int16/int8 chunks of ``PolisherModel.pack`` where the native
+    layout has none (tile_p > 256).  Returns (counts (8, seq_len)
+    tensor, new_id, status) — the non-lanes tail of the JAX package's
+    _polish_device_runs."""
+    from polypolish_tpu_torch.models.polisher import PolisherModel
+    from polypolish_tpu_torch.ops.vote_chunks import E_SUB, TILE_P
+
+    model = PolisherModel(p_pad, device, use_kernel=use_kernel, timer=timer)
+    with timer.stage("pack"):
+        ch = runs_handle.chunks(name, TILE_P, E_SUB, num_positions=p_pad)
+    with timer.stage("upload"):
+        if ch is None:
+            pos, vid, _w = runs_handle.events(name)
+            chunks = model.pack(pos, vid)
+        else:
+            chunks = [torch.from_numpy(a).to(device) for a in ch[:3]]
+    counts_t, new_id_t, status_t = model(*chunks, *thr_args)
+    with timer.stage("fetch"):
+        new_id = new_id_t[:seq_len].cpu().numpy()
+        status = status_t[:seq_len].cpu().numpy()
+    return counts_t[:, :seq_len], new_id, status
 
 
 def _apply_edits(seq: str, status: np.ndarray, new_id: np.ndarray, vocab: Vocab) -> str:

@@ -1,6 +1,8 @@
-"""GPU-only tests of polypolish_tpu_torch: each CUDA kernel against its
-plain PyTorch version on the card, bitwise, and the device polish
-against the host backend.  They skip when torch.cuda.is_available() is
+"""GPU-only tests of polypolish_tpu_torch: each CUDA kernel entry point
+against its plain PyTorch version on the card, bitwise (the lanes
+kernel's three row layouts across their plane-flush periods, the chunk
+kernel across tile_p, e_sub and chunks_per_step), and every device
+polish path against the host backend.  They skip when torch.cuda.is_available() is
 false.  This file imports no jax, so it runs on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -67,15 +69,20 @@ def on(device, *arrays):
             for a in arrays]
 
 
-def lanes_both(cuda_device, vb, bt, n_tiles, r_sub, tile_w):
-    if vb.dtype == np.uint8:
+def lanes_both(cuda_device, vb, bt, n_tiles, r_sub, tile_w,
+               body="packed4"):
+    """(kernel counts, plain counts) of one pack; uint8 byte rows are
+    converted to the packed4 layout for body packed4."""
+    if vb.dtype == np.uint8 and body == "packed4":
         vb = tvl.to_packed4(vb, r_sub)
-    before = tvl.lanes_counts.launches
-    got = tvl.lanes_counts(*on(cuda_device, vb, bt), n_tiles, r_sub, tile_w)
+    entry = tvl.BODIES[body][1]
+    before = tvl.lanes_counts.launches[entry]
+    got = tvl.lanes_counts(*on(cuda_device, vb, bt), n_tiles, r_sub, tile_w,
+                           body)
     torch.cuda.synchronize()
-    assert tvl.lanes_counts.launches == before + 1
+    assert tvl.lanes_counts.launches[entry] == before + 1
     want = tvl.lanes_counts_plain(*on(cuda_device, vb, bt), n_tiles, r_sub,
-                                  tile_w)
+                                  tile_w, body)
     return got.cpu().numpy(), want.cpu().numpy()
 
 
@@ -194,12 +201,125 @@ def test_polish_on_gpu_matches_host(cuda_device, tmp_path):
     for backend in ("device", "host"):
         out, err = io.StringIO(), io.StringIO()
         dbg = tmp_path / f"{backend}.tsv"
-        tvl.lanes_counts.launches = tvc.chunk_counts.launches = 0
+        tvl.lanes_counts.launches.clear()
+        tvc.chunk_counts.launches = 0
         with contextlib.redirect_stderr(err):
             polish(str(dbg), 0.2, 0.5, 10, 5, False, str(asm), [str(sam)],
                    out=out, backend=backend, device=cuda_device)
         results[backend] = (out.getvalue(), dbg.read_text())
         if backend == "device":
-            assert tvl.lanes_counts.launches == 1
+            assert tvl.lanes_counts.launches == {"lanes_vote_packed4": 1}
             assert tvc.chunk_counts.launches == 1
     assert results["device"] == results["host"]
+
+
+def _deep_rows(rng, per_tile, row_values, tile_w):
+    """Rows of random slot values with the given array-row count per
+    tile (one row per block): (vb, block_tile)."""
+    bt = np.repeat(np.arange(len(per_tile), dtype=np.int32), per_tile)
+    return rng.integers(0, row_values, (bt.size, tile_w)), bt
+
+
+@pytest.mark.parametrize("body,dtype", [("packed", np.uint8),
+                                        ("cmp", np.int8)])
+def test_lanes_bytes_entry_flush_boundaries(cuda_device, body, dtype):
+    """Byte rows (bodies packed and cmp, uint8 and int8) with tiles of
+    0, 254, 255, 256, 510 and 3,000 rows around the 255-row flush."""
+    rng = np.random.default_rng(6)
+    per_tile = [0, 254, 255, 256, 510, 3000, 1]
+    vb, bt = _deep_rows(rng, per_tile, 12, 256)
+    vb = np.where(vb >= 8, 255, vb).astype(np.uint8).view(dtype)
+    got, want = lanes_both(cuda_device, vb, bt, len(per_tile), 1, 256, body)
+    np.testing.assert_array_equal(got, want)
+    assert got.reshape(8, -1, 256).sum(axis=0)[5].min() > 255
+
+
+def test_lanes_packed8_entry_flush_boundaries(cuda_device):
+    """Nibble rows with tiles of 0, 30, 31, 32, 62 and 400 int32 rows
+    around the 31-row (248-slot) flush; nibbles 8-15 count nothing."""
+    rng = np.random.default_rng(7)
+    per_tile = [0, 30, 31, 32, 62, 400, 1]
+    nib, bt = _deep_rows(rng, per_tile, 16, 128)
+    words = np.zeros(nib.shape, np.uint32)
+    for k in range(8):
+        words |= rng.integers(0, 16, nib.shape).astype(np.uint32) << (4 * k)
+    got, want = lanes_both(cuda_device, words.view(np.int32), bt,
+                           len(per_tile), 8, 128, "packed8")
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("body", ["packed4", "packed", "cmp", "packed8"])
+def test_dense_counts_lanes_gpu_matches_cpu(cuda_device, body):
+    pos, vocab = rand_events(1_000_000, 60_000, 8, sparse_frac=0.05,
+                             skew=True)
+    got = tvl.dense_counts_lanes(pos, vocab, 60_000, body=body, cap=True,
+                                 device=cuda_device)
+    want = tvl.dense_counts_lanes(pos, vocab, 60_000, body=body, cap=True,
+                                  device="cpu")
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("tile_p,e_sub,k,layout", [
+    (128, 1, 1, "int32"), (128, 4, 2, "uint8"), (256, 8, 1, "int32"),
+    (256, 8, 1, "uint8"), (256, 4, 2, "int32"), (512, 8, 1, "int32"),
+    (1024, 4, 1, "int32"), (2048, 8, 1, "int32"), (2048, 2, 4, "int32")])
+def test_chunk_kernel_geometry_matches_plain(cuda_device, tile_p, e_sub, k,
+                                             layout):
+    """tile_p up to 2048 (64 KB of shared memory, past the 48 KB
+    default), any e_sub, chunks_per_step k; the uint8 layout holds
+    tile_p <= 256."""
+    P = 50_000
+    pos, vocab = rand_events(400_000, P, 9, sparse_frac=0.1, skew=True)
+    cp, cv, ct, n_tiles = tvc.prepare_chunks(
+        pos, vocab, P, tile_p, e_sub, use_native=False, chunk_multiple=k)
+    if layout == "uint8":
+        cv = np.where(cp < 0, 255, cv).astype(np.uint8)
+        cp = np.maximum(cp, 0).astype(np.uint8)
+    before = tvc.chunk_counts.launches
+    got = tvc.chunk_counts(*on(cuda_device, cp, cv, ct), n_tiles, tile_p,
+                           e_sub, chunks_per_step=k)
+    torch.cuda.synchronize()
+    assert tvc.chunk_counts.launches == before + 1
+    want = tvc.chunk_counts_plain(*on(cuda_device, cp, cv, ct), n_tiles,
+                                  tile_p, e_sub)
+    assert torch.equal(got, want)
+    assert int(got.sum()) == int((vocab < 8).sum())
+
+
+@pytest.mark.parametrize("fused", ["split", "fused", "unfused"])
+def test_dense_counts_chunks_gpu_matches_cpu(cuda_device, fused):
+    pos, vocab = rand_events(1_000_000, 60_000, 10, sparse_frac=0.05)
+    k = 2 if fused == "unfused" else 1
+    got = tvc.dense_counts_chunks(pos, vocab, 60_000, fused=fused,
+                                  chunks_per_step=k, device=cuda_device)
+    want = tvc.dense_counts_chunks(pos, vocab, 60_000, fused=fused,
+                                   chunks_per_step=k, device="cpu")
+    assert torch.equal(got.cpu(), want)
+
+
+def test_polish_mxu_and_xla_on_gpu_match_host(cuda_device, tmp_path):
+    """The mxu path launches the chunk kernel once per contig and no
+    lanes kernel; the xla path launches no hand kernel."""
+    fasta, sam_text = synth.make_polish_case(
+        seed=13, genome_len=20_000, n_reads=20_000, read_len=60, err=0.15,
+        multi_frac=0.5, n_draft_errors=40)
+    asm, sam = tmp_path / "a.fasta", tmp_path / "a.sam"
+    asm.write_text(synth.fasta_text(fasta))
+    sam.write_text(sam_text)
+    results = {}
+    for name, kwargs, chunk_launches in (
+            ("host", dict(backend="host"), 0),
+            ("mxu", dict(backend="device", kernel_variant="mxu"), 1),
+            ("xla", dict(backend="xla"), 0)):
+        out, err = io.StringIO(), io.StringIO()
+        dbg = tmp_path / f"{name}.tsv"
+        tvl.lanes_counts.launches.clear()
+        tvc.chunk_counts.launches = 0
+        with contextlib.redirect_stderr(err):
+            polish(str(dbg), 0.2, 0.5, 10, 5, False, str(asm), [str(sam)],
+                   out=out, device=cuda_device, **kwargs)
+        results[name] = (out.getvalue(), dbg.read_text())
+        assert sum(tvl.lanes_counts.launches.values()) == 0
+        assert tvc.chunk_counts.launches == chunk_launches
+    assert results["mxu"] == results["host"]
+    assert results["xla"] == results["host"]

@@ -1,4 +1,5 @@
-"""The port's ``polish`` end to end against polypolish_tpu's.
+"""The port's ``polish`` end to end against polypolish_tpu's (its mxu
+and xla paths: tests/test_torch_polish_paths.py).
 
 On the CPU, ``polypolish_tpu_torch.pipeline.polish.polish`` (backend
 "device" with device="cpu", which runs the kernels' plain PyTorch
@@ -6,58 +7,35 @@ versions, and backend "host") must give a FASTA and --debug TSV
 byte-identical to ``polypolish_tpu.pipeline.polish.polish`` (backends
 "host" and "pallas") and to tests/golden/*.expected.*, and a stderr
 narrative identical once the clock lines are masked.  Also: the port
-imports neither jax nor polypolish_tpu (a subprocess run and a static
-scan), and its CLI matches the JAX package's.
+imports neither jax nor polypolish_tpu (a subprocess run of every
+path and a static scan), its entry points default to CUDA, and its CLI
+matches the JAX package's.
 """
 
 import ast
 import contextlib
-import importlib.util
 import io
 import os
-import re
 import subprocess
 import sys
 
 import pytest
 import torch
 
-import tests.synth as synth
 from polypolish_tpu.errors import PolypolishError as JaxError
 from polypolish_tpu.pipeline.polish import polish as jax_polish
 from polypolish_tpu_torch.errors import PolypolishError
 from polypolish_tpu_torch.pipeline.polish import polish as port_polish
+from tests.torch_helpers import (
+    GOLDEN,
+    GOLDEN_CASES,
+    golden_careful,
+    mask_clock,
+)
+from tests.torch_helpers import run_polish as run
+from tests.torch_helpers import synth_case as _synth_case
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-GOLDEN = os.path.join(REPO, "tests", "golden")
-
-_spec = importlib.util.spec_from_file_location(
-    "make_goldens", os.path.join(GOLDEN, "make_goldens.py")
-)
-_mg = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(_mg)
-GOLDEN_CASES = ["tiny"] + sorted(_mg.CASES)
-
-_CLOCK = re.compile(r"\(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d\)|"
-                    r"Time to run: \d+:\d\d:\d\d\.\d{6}")
-
-
-def mask_clock(text: str) -> str:
-    return _CLOCK.sub("<clock>", text)
-
-
-def run(fn, tmp_path, tag, fasta, sams, careful=False, **kwargs):
-    """(FASTA, debug TSV, masked stderr) of one polish run.  The debug
-    path is the same for every run so the stderr narratives compare."""
-    debug = tmp_path / "debug.tsv"
-    out = io.StringIO()
-    err = io.StringIO()
-    with contextlib.redirect_stderr(err):
-        fn(str(debug), 0.2, 0.5, 10, 5, careful, str(fasta),
-           [str(s) for s in sams], out=out, **kwargs)
-    tsv = debug.read_text()
-    os.replace(debug, tmp_path / f"debug_{tag}.tsv")
-    return out.getvalue(), tsv, mask_clock(err.getvalue())
 
 
 PORT_RUNS = {
@@ -69,8 +47,7 @@ PORT_RUNS = {
 @pytest.mark.parametrize("port_backend", sorted(PORT_RUNS))
 @pytest.mark.parametrize("name", GOLDEN_CASES)
 def test_golden_matches_jax_host_and_files(tmp_path, name, port_backend):
-    careful = name != "tiny" and _mg.CASES[name]["params"].get(
-        "careful", False)
+    careful = golden_careful(name)
     fasta = os.path.join(GOLDEN, f"{name}.fasta")
     sams = [os.path.join(GOLDEN, f"{name}.sam")]
     got = run(port_polish, tmp_path, "port", fasta, sams, careful,
@@ -87,8 +64,7 @@ def test_golden_matches_jax_host_and_files(tmp_path, name, port_backend):
 @pytest.mark.parametrize("name", ["tiny", "indel_adopted", "multi_contig",
                                   "careful_mode", "third_weights"])
 def test_golden_matches_jax_pallas(tmp_path, name):
-    careful = name != "tiny" and _mg.CASES[name]["params"].get(
-        "careful", False)
+    careful = golden_careful(name)
     fasta = os.path.join(GOLDEN, f"{name}.fasta")
     sams = [os.path.join(GOLDEN, f"{name}.sam")]
     got = run(port_polish, tmp_path, "port", fasta, sams, careful,
@@ -96,35 +72,6 @@ def test_golden_matches_jax_pallas(tmp_path, name):
     want = run(jax_polish, tmp_path, "jax", fasta, sams, careful,
                backend="pallas")
     assert got == want
-
-
-def _synth_case(tmp_path, kind):
-    """(fasta path, [sam paths], careful) of a tests/synth.py case."""
-    if kind == "multi_contig":
-        fasta, sam_text = synth.make_multi_contig_case(
-            seed=4, n_contigs=3, genome_len=2500, n_reads=700,
-            read_len=50)
-        sams = [sam_text]
-    elif kind == "two_files":
-        fasta, s1 = synth.make_polish_case(seed=11, genome_len=5000,
-                                           n_reads=1500, read_len=70)
-        _, s2 = synth.make_polish_case(seed=11, genome_len=5000,
-                                       n_reads=1500, read_len=70,
-                                       shuffle_groups=True)
-        sams = [s1, s2]
-    else:  # deep, insertion-rich pileup: sparse tier + overflow list
-        fasta, sam_text = synth.make_polish_case(
-            seed=12, genome_len=3000, n_reads=6000, read_len=60,
-            err=0.15, multi_frac=0.5, n_draft_errors=25)
-        sams = [sam_text]
-    asm = tmp_path / f"{kind}.fasta"
-    asm.write_text(synth.fasta_text(fasta))
-    paths = []
-    for i, text in enumerate(sams):
-        p = tmp_path / f"{kind}_{i}.sam"
-        p.write_text(text)
-        paths.append(p)
-    return asm, paths
 
 
 @pytest.mark.parametrize("careful", [False, True])
@@ -247,6 +194,52 @@ def test_cli_matches_jax_cli(tmp_path):
     assert got == cli("polypolish_tpu", "--backend", "host")
 
 
+def test_cli_backend_flags_match_jax_cli(tmp_path):
+    """--backend xla and --kernel-variant mxu against the JAX CLI with
+    the same flags (its --backend pallas is the port's device)."""
+    fasta = os.path.join(GOLDEN, "indel_adopted.fasta")
+    sam = os.path.join(GOLDEN, "indel_adopted.sam")
+    dbg = str(tmp_path / "d.tsv")
+
+    def cli(pkg, *flags):
+        proc = subprocess.run(
+            [sys.executable, "-m", pkg, "polish", "--debug", dbg, *flags,
+             fasta, sam],
+            capture_output=True, text=True, env=_env(), cwd=REPO,
+            timeout=300,
+        )
+        assert proc.returncode == 0, proc.stderr
+        with open(dbg) as f:
+            return proc.stdout, f.read(), mask_clock(proc.stderr)
+
+    assert (cli("polypolish_tpu_torch", "--backend", "xla", "--device",
+                "cpu")
+            == cli("polypolish_tpu", "--backend", "xla"))
+    assert (cli("polypolish_tpu_torch", "--kernel-variant", "mxu",
+                "--device", "cpu")
+            == cli("polypolish_tpu", "--backend", "pallas",
+                   "--kernel-variant", "mxu"))
+
+
+def test_entry_points_default_to_cuda():
+    """Every entry point of the port runs on the card unless the caller
+    asks for the CPU."""
+    import inspect
+
+    from polypolish_tpu_torch import cli
+    from polypolish_tpu_torch.models import polisher
+    from polypolish_tpu_torch.ops import vote, vote_chunks, vote_lanes
+
+    for fn in (port_polish, vote.count_votes, vote_lanes.dense_counts_lanes,
+               vote_chunks.dense_counts_chunks, polisher.PolisherModel,
+               polisher.example_inputs):
+        default = inspect.signature(fn).parameters["device"].default
+        assert default == "cuda", fn
+    args = cli.build_parser().parse_args(["polish", "a.fasta", "a.sam"])
+    assert (args.device, args.backend, args.kernel_variant) == (
+        "cuda", "device", "lanes")
+
+
 def test_cli_fatal_error_exit_code(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-m", "polypolish_tpu_torch", "polish", "--device",
@@ -260,8 +253,9 @@ def test_cli_fatal_error_exit_code(tmp_path):
 _NO_JAX_SCRIPT = r"""
 import io, sys
 from polypolish_tpu_torch.pipeline.polish import polish
-polish(None, 0.2, 0.5, 10, 5, False, sys.argv[1], [sys.argv[2]],
-       out=io.StringIO(), device="cpu")
+for kwargs in (dict(), dict(kernel_variant="mxu"), dict(backend="xla")):
+    polish(None, 0.2, 0.5, 10, 5, False, sys.argv[1], [sys.argv[2]],
+           out=io.StringIO(), device="cpu", **kwargs)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "polypolish_tpu" or m.startswith("polypolish_tpu."))
@@ -296,9 +290,9 @@ def _forbidden(name: str) -> bool:
 
 def test_port_sources_import_no_jax():
     offenders = []
-    n_files = 0
+    scanned = set()
     for path in _port_sources():
-        n_files += 1
+        scanned.add(os.path.relpath(path, REPO))
         with open(path) as f:
             tree = ast.parse(f.read(), path)
         for node in ast.walk(tree):
@@ -309,5 +303,10 @@ def test_port_sources_import_no_jax():
             else:
                 continue
             offenders += [f"{path}: {n}" for n in names if _forbidden(n)]
-    assert n_files > 15
+    assert len(scanned) > 15
+    for module in ("ops/vote.py", "ops/vote_lanes.py", "ops/vote_chunks.py",
+                   "models/polisher.py", "pipeline/polish.py",
+                   "native/runs.py", "cli.py"):
+        assert os.path.join("polypolish_tpu_torch", module) in scanned
+    assert "chip_smoke.py" in scanned
     assert offenders == []

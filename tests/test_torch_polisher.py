@@ -1,8 +1,10 @@
 """Port models/polisher.py against polypolish_tpu/models/polisher.py:
 ``LanesPolisher.forward_pack`` on the CPU equals the JAX
 ``LanesPolisher(interpret=True)`` bitwise — counts, adopted ids and
-statuses — on native packed4 packs with and without the cap-overflow
-list, under both POLYPOLISH_TPU_OV_MODE values of the JAX side.
+statuses — on native packed4 and byte-row packs with and without the
+cap-overflow list, under both POLYPOLISH_TPU_OV_MODE values of the JAX
+side; ``PolisherModel`` equals the JAX ``PolisherModel(interpret=True)``
+with and without the kernel, on numpy-packed and native uint8 chunks.
 Tolerance: none."""
 
 import jax.numpy as jnp
@@ -11,7 +13,15 @@ import pytest
 import torch
 
 from polypolish_tpu.models.polisher import LanesPolisher as JaxPolisher
-from polypolish_tpu_torch.models.polisher import LanesPolisher
+from polypolish_tpu.models.polisher import PolisherModel as JaxModel
+from polypolish_tpu.models.polisher import (
+    example_inputs as jax_example_inputs,
+)
+from polypolish_tpu_torch.models.polisher import (
+    LanesPolisher,
+    PolisherModel,
+    example_inputs,
+)
 from polypolish_tpu_torch.ops import consensus as tc
 from polypolish_tpu_torch.ops.vote_lanes import prepare_lanes
 from tests.torch_helpers import (
@@ -100,9 +110,147 @@ def test_forward_pack_numpy_pack_matches_jax(monkeypatch, ov_mode):
         np.testing.assert_array_equal(g, w)
 
 
-def test_rejects_unpacked_layouts():
-    with pytest.raises(ValueError, match="r_sub"):
-        LanesPolisher(4096, "cpu", r_sub=6)
+def test_rejects_unpacked_layouts(tmp_path, monkeypatch):
+    """r_sub % 4 != 0 falls to the byte-row body 'packed' (the lanes
+    vote kernel's byte entry point), as the JAX LanesPolisher does:
+    bitwise equal to JaxPolisher(r_sub=6) on a native byte pack with an
+    overflow list.  The packed8 body and rows of the wrong type are
+    refused."""
+    monkeypatch.setenv("POLYPOLISH_TPU_OV_MODE", "scatter")
+    r_sub, tile_w, P_pad = 6, 256, 4096
+    assert LanesPolisher(P_pad, "cpu", r_sub=r_sub).body == "packed"
+    asm, sam = write_polish_case(tmp_path, seed=31, genome_len=4000,
+                                 n_reads=4000)
+    (jr, tr), names, lens = parse_both(asm, [sam])
+    name = names[0]
+    pack = tr.lanes(name, r_sub, tile_w, num_positions=P_pad, cap=True)
+    try:
+        assert pack.vb.dtype == np.uint8 and (pack.ov_vid < 8).any()
+        depth = tr.fold(name, want_counts=False)[1].copy()
+        thr = thresholds(depth, P_pad, 31)
+        jm = JaxPolisher(P_pad, r_sub=r_sub, tile_w=tile_w, interpret=True)
+        assert jm.body == "packed"
+        want = [np.asarray(x) for x in jm.forward_pack(
+            pack.vb, pack.block_tile, *[jnp.asarray(t) for t in thr],
+            ov_pos=pack.ov_pos, ov_vid=pack.ov_vid)]
+        tm = LanesPolisher(P_pad, "cpu", r_sub=r_sub, tile_w=tile_w)
+        got = [x.numpy() for x in tm.forward_pack(
+            pack.vb, pack.block_tile, *[torch.from_numpy(t) for t in thr],
+            ov_pos=pack.ov_pos, ov_vid=pack.ov_vid)]
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(got[0][:, :lens[name]],
+                                      tr.fold(name)[0])
+    finally:
+        pack.close()
+        jr.close()
+        tr.close()
+    with pytest.raises(ValueError, match="dense_counts_lanes"):
+        LanesPolisher(4096, "cpu", body="packed8")
     m = LanesPolisher(4096, "cpu", r_sub=8, tile_w=256)
     with pytest.raises(ValueError, match="packed4"):
         m.vote_counts(np.zeros((8, 256), np.int64), np.zeros(1, np.int32))
+    m = LanesPolisher(4096, "cpu", r_sub=8, tile_w=256, body="cmp")
+    with pytest.raises(ValueError, match="byte rows"):
+        m.vote_counts(np.zeros((2, 256), np.int32), np.zeros(1, np.int32))
+
+
+@pytest.mark.parametrize("body", ["packed", "cmp"])
+def test_byte_bodies_match_jax(monkeypatch, body):
+    """LanesPolisher on byte rows (bodies packed and cmp) against the
+    JAX LanesPolisher with the same body."""
+    monkeypatch.setenv("POLYPOLISH_TPU_OV_MODE", "scatter")
+    P, r_sub, tile_w = 3000, 8, 128
+    pos, vocab = rand_events(60_000, P, 3, sparse_frac=0.05, skew=True)
+    vb, bt, n_tiles, ov_pos, ov_vid = prepare_lanes(
+        pos, vocab, P, r_sub, tile_w, cap=True)
+    P_pad = n_tiles * tile_w
+    depth = np.bincount(pos, minlength=P_pad).astype(np.float64)
+    thr = thresholds(depth, P_pad, 3)
+    jm = JaxPolisher(P_pad, r_sub=r_sub, tile_w=tile_w, interpret=True,
+                     body=body)
+    want = [np.asarray(x) for x in jm.forward_pack(
+        vb, bt, *[jnp.asarray(t) for t in thr], ov_pos=ov_pos,
+        ov_vid=ov_vid)]
+    tm = LanesPolisher(P_pad, "cpu", r_sub=r_sub, tile_w=tile_w, body=body)
+    got = [x.numpy() for x in tm.forward_pack(
+        vb.view(np.int8), bt, *[torch.from_numpy(t) for t in thr],
+        ov_pos=ov_pos, ov_vid=ov_vid)]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def _model_inputs(P, n, seed):
+    pos, vocab = rand_events(n, P, seed, sparse_frac=0.05)
+    depth = np.bincount(pos, minlength=P).astype(np.float64)
+    return pos, vocab, thresholds(depth, P, seed)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_polisher_model_numpy_pack_matches_jax(use_kernel):
+    """PolisherModel.pack (int16 positions, int8 vocab, widened in
+    forward) and forward, with the chunk vote kernel's plain version or
+    the scatter twin, against the JAX PolisherModel(interpret=True)."""
+    P = 4096
+    pos, vocab, thr = _model_inputs(P, 30_000, 13)
+    jm = JaxModel(P, use_pallas=use_kernel, interpret=True)
+    jargs = jm.pack(pos, vocab)
+    want = [np.asarray(x) for x in jm.forward_jit(
+        *jargs, *[jnp.asarray(t) for t in thr])]
+    tm = PolisherModel(P, "cpu", use_kernel=use_kernel)
+    targs = tm.pack(pos, vocab)
+    assert [a.dtype for a in targs] == [torch.int16, torch.int8,
+                                        torch.int32]
+    for a, b in zip(targs, jargs):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    got = [x.numpy() for x in tm(*targs,
+                                 *[torch.from_numpy(t) for t in thr])]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_polisher_model_native_chunks_match_jax(tmp_path, use_kernel):
+    """PolisherModel on the native uint8 chunk layout (pad vocab 255),
+    as the mxu and xla polish paths feed it: equal to the JAX model and
+    to the C++ fold."""
+    P_pad = 4096
+    asm, sam = write_polish_case(tmp_path, seed=67, genome_len=4000,
+                                 n_reads=4000)
+    (jr, tr), names, lens = parse_both(asm, [sam])
+    name = names[0]
+    try:
+        ch = tr.chunks(name, 256, 8, num_positions=P_pad)
+        depth = tr.fold(name, want_counts=False)[1].copy()
+        thr = thresholds(depth, P_pad, 67)
+        jm = JaxModel(P_pad, use_pallas=use_kernel, interpret=True)
+        want = [np.asarray(x) for x in jm.forward_jit(
+            *[jnp.asarray(a) for a in ch[:3]],
+            *[jnp.asarray(t) for t in thr])]
+        tm = PolisherModel(P_pad, "cpu", use_kernel=use_kernel)
+        got = [x.numpy() for x in tm(
+            *[torch.from_numpy(a) for a in ch[:3]],
+            *[torch.from_numpy(t) for t in thr])]
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(got[0][:, :lens[name]],
+                                      tr.fold(name)[0])
+    finally:
+        jr.close()
+        tr.close()
+
+
+def test_example_inputs_match_jax():
+    jm, jargs = jax_example_inputs(num_positions=4096, n_events=20_000,
+                                   seed=2)
+    tm, targs = example_inputs(num_positions=4096, n_events=20_000,
+                               seed=2, device="cpu")
+    assert tm.num_positions == jm.num_positions and tm.n_tiles == jm.n_tiles
+    for a, b in zip(targs, jargs):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    want = [np.asarray(x) for x in jm.forward_jit(*jargs)]
+    got = [x.numpy() for x in tm(*targs)]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

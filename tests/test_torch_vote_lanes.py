@@ -16,6 +16,7 @@ import torch
 from polypolish_tpu.ops import vote_lanes as jvl
 from polypolish_tpu_torch.ops import vote_lanes as tvl
 from tests.torch_helpers import (
+    LANES_WORKLOADS as WORKLOADS,
     parse_both,
     rand_events,
     write_polish_case,
@@ -39,20 +40,6 @@ def port_counts(vb, block_tile, n_tiles, r_sub, tile_w, device="cpu"):
         n_tiles, r_sub, tile_w,
     )
     return out.cpu().numpy()
-
-
-WORKLOADS = [
-    # (n events, positions, seed, sparse_frac, skew, r_sub, tile_w)
-    (0, 100, 0, 0.1, False, 32, 2048),
-    (1, 1, 1, 0.1, False, 32, 2048),
-    (1000, 257, 2, 0.1, False, 32, 2048),
-    (20000, 4096, 3, 0.1, False, 32, 2048),
-    (50000, 1000, 4, 0.1, False, 32, 2048),
-    (30000, 2000, 7, 0.05, True, 8, 128),
-    (30000, 2000, 7, 0.05, True, 16, 256),
-    (30000, 2000, 7, 0.05, True, 32, 1024),
-    (120000, 4000, 1, 0.0, True, 8, 128),
-]
 
 
 @pytest.mark.parametrize("cap", [False, True])

@@ -1,14 +1,121 @@
 """Shared helpers of the port's tests (tests/test_torch_*.py): seeded
 numpy workloads that go through both polypolish_tpu and
-polypolish_tpu_torch."""
+polypolish_tpu_torch, and race-safe builds of polypolish_tpu's native
+library and replica binary, run once when this module is imported."""
 
 from __future__ import annotations
+
+import contextlib
+import fcntl
+import importlib.util
+import io
+import os
+import re
+import subprocess
 
 import numpy as np
 
 import tests.synth as synth
 
 DENSE_V = 8
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+
+_spec = importlib.util.spec_from_file_location(
+    "make_goldens", os.path.join(GOLDEN, "make_goldens.py")
+)
+_mg = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_mg)
+GOLDEN_CASES = ["tiny"] + sorted(_mg.CASES)
+
+_CLOCK = re.compile(r"\(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d\)|"
+                    r"Time to run: \d+:\d\d:\d\d\.\d{6}")
+
+
+def _locked_build(path, src, cmd, force=False):
+    """Build ``path`` from ``src`` with ``cmd(output)`` under an fcntl
+    lock next to it, unless it is newer than the source (or ``force``);
+    the compiler writes a per-process temporary that is renamed into
+    place."""
+    with open(path + ".lock", "w") as lock_file:
+        fcntl.flock(lock_file, fcntl.LOCK_EX)
+        fresh = (os.path.exists(path)
+                 and os.path.getmtime(path) >= os.path.getmtime(src))
+        if fresh and not force:
+            return
+        tmp = f"{path}.tmp.{os.getpid()}"
+        try:
+            subprocess.run(cmd(tmp), check=True, capture_output=True,
+                           timeout=600)
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+
+
+def ensure_jax_native():
+    """Build polypolish_tpu's native library race-safely and make its
+    loader retry; returns the loaded library or None.
+
+    polypolish_tpu/native/binding.py builds sam_packer.cc with no lock,
+    every process writing the same temporary, and a process whose build
+    or dlopen loses that race marks the build failed for the rest of its
+    life.  Parallel test workers on a fresh checkout race exactly so.
+    Here the build runs under a lock (``_locked_build``, the g++ command
+    of binding._build); then this resets the JAX binding's module state
+    (``_build_failed``) from the test side so that ``load_library()``
+    tries again.  No file of polypolish_tpu is edited.  If the library
+    in place cannot be loaded (a half-written file left by the unlocked
+    build), it is rebuilt once."""
+    from polypolish_tpu.native import binding
+
+    def cmd(out):
+        return ["g++", "-O3", "-march=native", "-std=c++17", "-shared",
+                "-fPIC", binding._SRC, "-o", out, "-lz"]
+
+    for force in (False, True):
+        _locked_build(binding._LIB, binding._SRC, cmd, force)
+        binding._build_failed = False
+        try:
+            lib = binding.load_library()
+        except OSError:  # dlopen of a half-written library
+            lib = None
+        if lib is not None:
+            return lib
+    return None
+
+
+def ensure_jax_replica():
+    """The same for polypolish_tpu's reference replica binary (ppref,
+    polypolish_tpu/native/replica.py build, whose unlocked build races
+    the same way and skips the replica tests of a worker that lost):
+    build it under the lock and reset ``replica._build_failed``.
+    Returns the binary's path or None."""
+    from polypolish_tpu.native import replica
+
+    _locked_build(replica._BIN, replica._SRC,
+                  lambda out: ["g++", "-O2", "-std=c++17", replica._SRC,
+                               "-o", out])
+    replica._build_failed = False
+    return replica.build()
+
+
+ensure_jax_native()
+ensure_jax_replica()
+
+
+# (n events, positions, seed, sparse_frac, skew, r_sub, tile_w): sparse,
+# skewed, position-padded and narrow-tile lane packs
+LANES_WORKLOADS = [
+    (0, 100, 0, 0.1, False, 32, 2048),
+    (1, 1, 1, 0.1, False, 32, 2048),
+    (1000, 257, 2, 0.1, False, 32, 2048),
+    (20000, 4096, 3, 0.1, False, 32, 2048),
+    (50000, 1000, 4, 0.1, False, 32, 2048),
+    (30000, 2000, 7, 0.05, True, 8, 128),
+    (30000, 2000, 7, 0.05, True, 16, 256),
+    (30000, 2000, 7, 0.05, True, 32, 1024),
+    (120000, 4000, 1, 0.0, True, 8, 128),
+]
 
 
 def rand_events(n, num_positions, seed, sparse_frac=0.0, skew=False):
@@ -52,6 +159,10 @@ def parse_both(asm, sams):
     from polypolish_tpu_torch.native import runs as torch_runs
     from polypolish_tpu_torch.vocab import Vocab
 
+    assert ensure_jax_native() is not None, (
+        "polypolish_tpu's native library did not load: its unlocked "
+        "build (polypolish_tpu/native/binding.py _build) lost a race "
+        "with another process and the locked rebuild failed too")
     fa = load_fasta(asm)
     names = [n for n, _, _ in fa]
     lens = {n: len(s) for n, _, s in fa}
@@ -59,3 +170,55 @@ def parse_both(asm, sams):
     jr = jax_runs.parse_runs(files, names, lens, JaxVocab(), 10, False)
     tr = torch_runs.parse_runs(files, names, lens, Vocab(), 10, False)
     return (jr, tr), names, lens
+
+
+def golden_careful(name):
+    """Whether golden case ``name`` runs with --careful."""
+    return name != "tiny" and _mg.CASES[name]["params"].get("careful", False)
+
+
+def mask_clock(text: str) -> str:
+    return _CLOCK.sub("<clock>", text)
+
+
+def run_polish(fn, tmp_path, tag, fasta, sams, careful=False, **kwargs):
+    """(FASTA, debug TSV, masked stderr) of one polish run.  The debug
+    path is the same for every run so the stderr narratives compare."""
+    debug = tmp_path / "debug.tsv"
+    out = io.StringIO()
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        fn(str(debug), 0.2, 0.5, 10, 5, careful, str(fasta),
+           [str(s) for s in sams], out=out, **kwargs)
+    tsv = debug.read_text()
+    os.replace(debug, tmp_path / f"debug_{tag}.tsv")
+    return out.getvalue(), tsv, mask_clock(err.getvalue())
+
+
+def synth_case(tmp_path, kind):
+    """(fasta path, [sam paths]) of a tests/synth.py case."""
+    if kind == "multi_contig":
+        fasta, sam_text = synth.make_multi_contig_case(
+            seed=4, n_contigs=3, genome_len=2500, n_reads=700,
+            read_len=50)
+        sams = [sam_text]
+    elif kind == "two_files":
+        fasta, s1 = synth.make_polish_case(seed=11, genome_len=5000,
+                                           n_reads=1500, read_len=70)
+        _, s2 = synth.make_polish_case(seed=11, genome_len=5000,
+                                       n_reads=1500, read_len=70,
+                                       shuffle_groups=True)
+        sams = [s1, s2]
+    else:  # deep, insertion-rich pileup: sparse tier + overflow list
+        fasta, sam_text = synth.make_polish_case(
+            seed=12, genome_len=3000, n_reads=6000, read_len=60,
+            err=0.15, multi_frac=0.5, n_draft_errors=25)
+        sams = [sam_text]
+    asm = tmp_path / f"{kind}.fasta"
+    asm.write_text(synth.fasta_text(fasta))
+    paths = []
+    for i, text in enumerate(sams):
+        p = tmp_path / f"{kind}_{i}.sam"
+        p.write_text(text)
+        paths.append(p)
+    return asm, paths
