@@ -17,11 +17,16 @@ Phases, in order; any failure raises and exits non-zero:
    pack, a skewed pack with a tile deeper than 255 byte-rows, and a
    stream rounded to a 32,768-block slab multiple; the byte rows (D/E,
    uint8 and int8) and the packed8 nibbles (C) on the E. coli byte pack
-   and the skewed deep pack (past 255 byte-rows and 31 packed8 rows).
+   and the skewed deep pack (past 255 byte-rows and 15 packed8 rows);
+   packed8 on tiles of 14, 15, 16, 30 and 31 rows around its 15-row
+   flush, and on all-pad and one-value words.
 3. The chunk vote kernel against its plain version, bitwise: both pad
    layouts on the E. coli cap-overflow chunks (int32, pos -1) and the
-   E. coli events (uint8, vocab 255), and tile_p 128/256/512 x e_sub 4/8
-   on a 3 M-event skewed stream, two chunks per step at e_sub 4.
+   E. coli events (uint8, vocab 255), tile_p 128/256/512 x e_sub 4/8
+   on a 3 M-event skewed stream, two chunks per step at e_sub 4; deep
+   skewed tiles (one 300 chunks deep per step, tiles of pad chunks only,
+   tiles with no chunk) at tile_p 128/256/512/2048 in both layouts and
+   two chunks per step; and the repeat-rich workload's uint8 chunks.
 4. End to end: ``polish`` on the card for both workloads with
    backend="device" (kernel_variant "lanes" and "mxu") and backend
    "xla", each FASTA byte-identical to the port's backend="host" run
@@ -41,8 +46,13 @@ Phases, in order; any failure raises and exits non-zero:
 6. Kernel and plain-version times with CUDA events, one PyTorch library
    call on the same inputs as a yardstick (torch.bincount), and the
    least time the card could take (bytes over 3.35 TB/s, or integer
-   operations over the int32 issue rate).  Then the ``kernels`` JSON
-   line and, last, the device JSON line.
+   operations over the int32 issue rate; for the chunk layout the bytes
+   are the array that marks pads whole and the other one for the events
+   that are not pads).  The chunk vote kernel is
+   timed with its wrapper's device work (order check and tile prefix),
+   alone, and as a whole ``chunk_counts`` call, on the E. coli pileup,
+   the E. coli overflow chunks and the repeat-rich pileup.  Then the
+   ``kernels`` JSON line and, last, the device JSON line.
 
 Exits non-zero, printing no result, when torch.cuda.is_available() is
 false or the repository's port package is not importable.
@@ -319,6 +329,32 @@ def main() -> int:
                     f"byte-rows)", torch.from_numpy(arr).to(dev), d_bt,
                     n_tiles, R_SUB, TILE_W, body)
 
+    # packed8 around the bit-sliced kernel's 15-row flush: tiles of
+    # 0/14/15/16/30/31/400 int32 rows of random nibbles, then all-pad
+    # words and words of one value in all eight nibbles
+    per_tile = [0, 14, 15, 16, 30, 31, 400, 1]
+    bt = np.repeat(np.arange(len(per_tile), dtype=np.int32), per_tile)
+    words = np.zeros((bt.size, TILE_W), np.uint32)
+    for k in range(8):
+        words |= rng.integers(0, 16, words.shape).astype(np.uint32) << (4 * k)
+    check_lanes("packed8 flush boundaries (tiles of 0-400 rows)",
+                torch.from_numpy(words.view(np.int32)).to(dev),
+                torch.from_numpy(bt).to(dev), len(per_tile), 8, TILE_W,
+                "packed8")
+    values = [15, 0, 7, 3, 8]
+    words = np.repeat(np.array([int(f"{v:x}" * 8, 16) for v in values],
+                               np.uint32), 16)[:, None].repeat(TILE_W, 1)
+    bt = np.repeat(np.arange(len(values), dtype=np.int32), 16)
+    got = check_lanes("packed8 all-pad and one-value words",
+                      torch.from_numpy(words.view(np.int32)).to(dev),
+                      torch.from_numpy(bt).to(dev), len(values), 8, TILE_W,
+                      "packed8")
+    per_value = got.view(8, len(values), TILE_W).sum(dim=2).cpu().numpy()
+    check(per_value[:, 0].sum() == 0 and per_value[:, 4].sum() == 0
+          and all(per_value[v, t] == 8 * 16 * TILE_W
+                  for t, v in ((1, 0), (2, 7), (3, 3))),
+          f"packed8 one-value words counted {per_value.T.tolist()}")
+
     # slab-rounded stream: 33,000 real blocks rounded up to 65,536 (two
     # slabs of MAX_BLOCKS_PER_CALL), pad blocks on the last tile
     sl_tile_w, sl_tiles = 128, 4000
@@ -349,9 +385,15 @@ def main() -> int:
                                        chunks_per_step=k)
         want = vote_chunks.chunk_counts_plain(cp, cv, ct, n_tiles, tile_p,
                                               e_sub)
+        _, plan = vote_chunks.chunk_vote_launch(cp, cv, ct, n_tiles, tile_p,
+                                                e_sub)
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
         check(err == 0, f"chunk kernel != plain on {label} (max err {err})")
+        check(torch.equal(plan[:n_tiles + 1],
+                          vote_chunks.tile_chunk_start(ct, n_tiles))
+              and int(plan[n_tiles + 1]) == 0,
+              f"chunk kernel's tile prefix != plain on {label}")
         errs["chunk_vote"] = max(errs["chunk_vote"], err)
         print(f"chunk_vote == plain on {label}: {ct.shape[0]} chunks "
               f"{cp.dtype}, {int(want.sum())} votes")
@@ -388,6 +430,51 @@ def main() -> int:
                          f"chunks_per_step={k}",
                          *(torch.from_numpy(a).to(dev) for a in (cp, cv, ct)),
                          n_t, tile_p, e_sub, k)
+
+    # one CTA per tile: a tile 300 chunks deep, tiles of pad chunks only
+    # and tiles with no chunk (written as zeros, never zero-filled)
+    for tile_p, e_sub, k, layout in ((128, 8, 1, "int32"),
+                                     (128, 4, 2, "uint8"),
+                                     (256, 8, 1, "uint8"),
+                                     (256, 8, 2, "int32"),
+                                     (512, 2, 1, "int32"),
+                                     (2048, 8, 1, "int32")):
+        n_t = 60
+        per_tile = rng.integers(1, 5, n_t) * k
+        per_tile[3] = 300 * k
+        per_tile[20:22] = 0
+        ct = np.repeat(np.arange(n_t, dtype=np.int32), per_tile)
+        e = e_sub * 128
+        cp = rng.integers(0, tile_p, (ct.size, e))
+        cv = rng.integers(0, 10, (ct.size, e))
+        pad = (rng.random(cp.shape) < 0.1) | ((ct >= 10) & (ct < 15))[:, None]
+        if layout == "uint8":
+            cp = cp.astype(np.uint8)
+            cv = np.where(pad, 255, cv).astype(np.uint8)
+        else:
+            cp = np.where(pad, -1, cp).astype(np.int32)
+            cv = cv.astype(np.int32)
+        got = check_chunks(f"deep skewed tiles tile_p={tile_p} e_sub={e_sub} "
+                           f"chunks_per_step={k} {layout}",
+                           *(torch.from_numpy(a.reshape(-1, 128)).to(dev)
+                             for a in (cp, cv)),
+                           torch.from_numpy(ct).to(dev), n_t, tile_p, e_sub, k)
+        by_tile = got.view(8, n_t, tile_p).sum(dim=(0, 2)).cpu().numpy()
+        check((by_tile[10:15] == 0).all() and (by_tile[20:22] == 0).all(),
+              "pad-only or chunk-less tiles counted votes")
+
+    # the repeat-rich workload's uint8 chunks: its deepest tiles
+    r_pr, r_name, r_P, _, _ = parse(*cases["repeats"])
+    r8 = r_pr.chunks(r_name, vote_chunks.TILE_P, vote_chunks.E_SUB,
+                     num_positions=_pad_bucket(r_P))
+    check(r8 is not None, "repeats uint8 chunks")
+    r_cp, r_cv, r_ct = (torch.from_numpy(a).to(dev) for a in r8[:3])
+    r_tiles = r8[3]
+    r_deepest = int(np.bincount(r8[2]).max())
+    del r8
+    r_pr.close()
+    check_chunks(f"repeats events (uint8; deepest tile {r_deepest} chunks)",
+                 r_cp, r_cv, r_ct, r_tiles)
     print(f"phase 3 (chunk kernel): {time.monotonic() - t0:.1f} s")
 
     # -- phase 4: end to end ------------------------------------------
@@ -516,7 +603,6 @@ def main() -> int:
     # -- phase 6: timings ---------------------------------------------
     stream = torch.cuda.current_stream().cuda_stream
     lib_l = vote_lanes._kernel()
-    lib_c = vote_chunks._kernel()
     width = 8 * e_ntiles * TILE_W
     out_l = torch.empty_like(e_counts)
 
@@ -540,23 +626,36 @@ def main() -> int:
                    + width * 4)
         return ms, plain, lib, votes, n_bytes
 
-    def chunk_timing(fn, cp, cv, ct, n_tiles):
-        out = torch.zeros((8, n_tiles * 256), dtype=torch.int32, device=dev)
+    chunk_extra = {}
 
-        def run():  # the zero-fill is part of producing the output
-            out.zero_()
-            check(fn(cp.data_ptr(), cv.data_ptr(), ct.data_ptr(),
-                     ct.shape[0], out.data_ptr(), n_tiles, 256, 8, 1,
-                     stream) == 0, "chunk_vote launch")
-
-        ms = cuda_ms(run, TIMED_LAUNCHES)
+    def chunk_timing(label, cp, cv, ct, n_tiles):
+        # the launch's device work (tile prefix, per-tile CTAs, deep-tile
+        # segments), then the whole chunk_counts call, whose host read of
+        # the order flag waits for the device after each launch
+        ms = cuda_ms(lambda: vote_chunks.chunk_vote_launch(cp, cv, ct,
+                                                           n_tiles),
+                     TIMED_LAUNCHES)
+        per_tile = torch.bincount(ct.to(torch.int64), minlength=n_tiles)
+        chunk_extra[label] = {
+            "wrapper_ms": cuda_ms(lambda: vote_chunks.chunk_counts(
+                cp, cv, ct, n_tiles), TIMED_LAUNCHES),
+            "deepest_tile_chunks": int(per_tile[:-1].max()),
+            "last_tile_chunks": int(per_tile[-1]),
+        }
         plain = cuda_ms(lambda: vote_chunks.chunk_counts_plain(
             cp, cv, ct, n_tiles), 3)
         keys = chunk_keys(cp, cv, ct, n_tiles)
         lib = cuda_ms(lambda: torch.bincount(
             keys, minlength=8 * n_tiles * 256), 3)
         votes = int(keys.numel())
-        n_bytes = (cp.numel() * cp.element_size() * 2 + ct.numel() * 4
+        # the bytes the function needs: the array that marks pads (pos in
+        # the int32 layout, vocab in uint8) whole, the other one for the
+        # events that are not pads, chunk_tile, and the output
+        if cp.dtype == torch.int32:
+            kept = int(((cp >= 0) & (cp < 256)).sum())
+        else:
+            kept = int((cv < 8).sum())
+        n_bytes = ((cp.numel() + kept) * cp.element_size() + ct.numel() * 4
                    + 8 * n_tiles * 256 * 4)
         return ms, plain, lib, votes, n_bytes
 
@@ -567,10 +666,11 @@ def main() -> int:
                                          b_vb, b_bt),
         "lanes_vote_packed8": lanes_timing("lanes_vote_packed8", "packed8",
                                            n_vb, b_bt),
-        "chunk_vote": chunk_timing(lib_c.chunk_vote_u8, u_cp, u_cv, u_ct,
-                                   u_tiles),
+        "chunk_vote": chunk_timing("chunk_vote", u_cp, u_cv, u_ct, u_tiles),
         "chunk_vote (overflow fold)": chunk_timing(
-            lib_c.chunk_vote_i32, o_cp, o_cv, o_ct, ov_tiles),
+            "chunk_vote (overflow fold)", o_cp, o_cv, o_ct, ov_tiles),
+        "chunk_vote (repeats)": chunk_timing(
+            "chunk_vote (repeats)", r_cp, r_cv, r_ct, r_tiles),
     }
     inputs = {
         "lanes_vote_packed4": "E. coli packed4 pack",
@@ -578,6 +678,7 @@ def main() -> int:
         "lanes_vote_packed8": "E. coli packed8 pack",
         "chunk_vote": "E. coli events, uint8 chunks (the mxu path)",
         "chunk_vote (overflow fold)": "E. coli overflow chunks (int32)",
+        "chunk_vote (repeats)": "repeats events, uint8 chunks",
     }
     bounds = {}
     for label, (ms, plain, lib, votes, n_bytes) in timed.items():
@@ -588,6 +689,11 @@ def main() -> int:
               f"{n_bytes / ms / 1e9:.3f} TB/s; plain {plain:.3f} ms; "
               f"torch.bincount {lib:.3f} ms; bound {b_ms:.4f} ms "
               f"({b_ms / ms:.1%} of it)")
+        if label in chunk_extra:
+            x = chunk_extra[label]
+            print(f"{label}: chunk_counts call {x['wrapper_ms']:.4f} ms; "
+                  f"deepest tile {x['deepest_tile_chunks']} chunks, last "
+                  f"tile (with the pad chunks) {x['last_tile_chunks']}")
 
     def entry(name, source, replaces, label):
         ms, plain, lib, _, _ = timed[label]
@@ -611,12 +717,13 @@ def main() -> int:
               f"{vp}:144 (split), {vp}:99 (fused), {vp}:60 (unfused)",
               "chunk_vote"),
     ]
-    ov = timed["chunk_vote (overflow fold)"]
-    kernels[-1].update({"overflow_fold_ms": ov[0],
-                        "overflow_fold_plain_ms": ov[1],
-                        "overflow_fold_bound_ms":
-                            bounds["chunk_vote (overflow fold)"][0],
-                        "overflow_fold_library_ms": ov[2]})
+    for role in ("overflow fold", "repeats"):
+        label = f"chunk_vote ({role})"
+        key = role.replace(" ", "_")
+        kernels[-1].update({f"{key}_ms": timed[label][0],
+                            f"{key}_plain_ms": timed[label][1],
+                            f"{key}_bound_ms": bounds[label][0],
+                            f"{key}_library_ms": timed[label][2]})
     for k in kernels:
         check(k["launches"] > 0 and k["max_abs_err"] == 0,
               f"kernel {k['name']}: {k['launches']} launches, max err "

@@ -5,7 +5,8 @@ Pallas).
 Host layout ("chunks"): dense-tier events (position, vocab id) are
 bucketed by position tile (``tile_p`` positions per tile) and padded to
 fixed-size chunks of ``e_sub*128`` events, each chunk owned by one tile
-(``chunk_tile``), tiles in order, every tile at least one chunk.  Pad
+(``chunk_tile``), tiles in order, every tile at least one chunk (the
+packers' layout; ``chunk_counts`` relies only on the order).  Pad
 events carry position -1 (int32 layout, ``prepare_chunks``) or vocab 255
 (uint8 layout, ``ParsedRuns.chunks``).
 
@@ -237,12 +238,68 @@ def _kernel() -> ctypes.CDLL:
         for fn in (lib.chunk_vote_i32, lib.chunk_vote_u8):
             fn.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ]
             fn.restype = ctypes.c_int
         _kernel_lib = lib
     return _kernel_lib
+
+
+_ORDER = ("chunk_tile must be non-decreasing: the chunk layout keeps "
+          "tiles in order (prepare_chunks and ParsedRuns.chunks emit it so)")
+
+
+def _check_tile_order(chunk_tile: torch.Tensor) -> None:
+    """The chunk layout's contract that the chunk vote kernel relies on,
+    as the TPU kernels do (they zero a tile on its first chunk): tiles
+    in order."""
+    if chunk_tile.numel() > 1 and bool((chunk_tile[1:] < chunk_tile[:-1])
+                                       .any()):
+        raise ValueError(_ORDER)
+
+
+def tile_chunk_start(chunk_tile: torch.Tensor, n_tiles: int) -> torch.Tensor:
+    """(n_tiles + 1,) int64 first chunk of each tile: tile t owns chunks
+    [start[t], start[t + 1]); chunks whose tile lies outside
+    [0, n_tiles) fall before start[0] or from start[n_tiles] on.  Raises
+    if chunk_tile is not non-decreasing.  The plain PyTorch version of
+    the prefix that the chunk vote kernel's launch builds on the card
+    (``chunk_vote_launch`` returns it)."""
+    _check_tile_order(chunk_tile)
+    tiles = torch.arange(n_tiles + 1, dtype=torch.int32,
+                         device=chunk_tile.device)
+    return torch.searchsorted(chunk_tile, tiles)
+
+
+def chunk_vote_launch(chunk_pos: torch.Tensor, chunk_vocab: torch.Tensor,
+                      chunk_tile: torch.Tensor, n_tiles: int,
+                      tile_p: int = TILE_P, e_sub: int = E_SUB
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the chunk vote kernel on CUDA tensors, checked by
+    ``chunk_counts``, without waiting for it: (counts, plan), where
+    plan[:n_tiles + 1] is the tile prefix and plan[n_tiles + 1] is 1 if
+    chunk_tile is out of order (counts are then not written).  Counts
+    one launch in ``chunk_counts.launches``."""
+    if chunk_pos.data_ptr() % 16 or chunk_vocab.data_ptr() % 16:
+        raise ValueError("chunk_pos and chunk_vocab must be 16-byte "
+                         "aligned (the kernel reads 16-byte vectors)")
+    dev = chunk_pos.device
+    plan = torch.empty(n_tiles + 2, dtype=torch.int64, device=dev)
+    out = torch.empty((DENSE_V, n_tiles * tile_p), dtype=torch.int32,
+                      device=dev)
+    lib = _kernel()
+    fn = lib.chunk_vote_i32 if chunk_pos.dtype == torch.int32 \
+        else lib.chunk_vote_u8
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(chunk_pos.data_ptr(), chunk_vocab.data_ptr(),
+                 chunk_tile.data_ptr(), chunk_tile.shape[0], plan.data_ptr(),
+                 out.data_ptr(), n_tiles, tile_p, e_sub, stream)
+    if err != 0:
+        raise RuntimeError(f"chunk_vote launch failed: CUDA error {err}")
+    chunk_counts.launches += 1
+    return out, plan
 
 
 def chunk_counts(chunk_pos: torch.Tensor, chunk_vocab: torch.Tensor,
@@ -253,39 +310,32 @@ def chunk_counts(chunk_pos: torch.Tensor, chunk_vocab: torch.Tensor,
     """(8, n_tiles*tile_p) int32 vote counts of a chunk stream.
 
     chunk_pos / chunk_vocab: (C*e_sub, 128), both int32 (pad pos -1) or
-    both uint8 (pad vocab 255, tile_p <= 256); chunk_tile: int32 (C,);
-    tile_p a multiple of 128 up to 2048.  ``variant`` names the JAX
-    kernel variant ('split', 'fused', 'unfused' or the legacy bools);
-    all of them compute this one function, and one kernel serves them.
-    chunks_per_step = k > 1 has each CTA count k chunks, which must
-    share a tile (checked; raises otherwise).  CUDA tensors launch the
-    chunk vote kernel (csrc/chunk_vote.cu) on the current stream; CPU
-    tensors run chunk_counts_plain.  ``chunk_counts.launches`` counts
-    kernel launches."""
+    both uint8 (pad vocab 255, tile_p <= 256); chunk_tile: int32 (C,),
+    non-decreasing (checked; raises otherwise); tile_p a multiple of 128
+    up to 2048.  ``variant`` names the JAX kernel variant ('split',
+    'fused', 'unfused' or the legacy bools); all of them compute this
+    one function, and one kernel serves them.  chunks_per_step = k > 1
+    is JAX's step of k chunks, which must share a tile (checked; raises
+    otherwise); the kernel counts tile by tile, so k changes nothing
+    else.  CUDA tensors launch the chunk vote kernel (csrc/chunk_vote.cu)
+    on the current stream and wait for its order flag; CPU tensors run
+    chunk_counts_plain.  ``chunk_counts.launches`` counts kernel
+    launches."""
     _variant_name(variant)
     _check_chunk_args(chunk_pos, chunk_vocab, chunk_tile, n_tiles, tile_p,
                       e_sub)
     _check_steps(chunk_tile, chunks_per_step)
     if chunk_pos.device.type == "cpu":
+        _check_tile_order(chunk_tile)
         return chunk_counts_plain(chunk_pos, chunk_vocab, chunk_tile,
                                   n_tiles, tile_p, e_sub)
     if chunk_pos.device.type != "cuda":
         raise ValueError(f"chunk_counts: unsupported device "
                          f"{chunk_pos.device}")
-    out = torch.zeros((DENSE_V, n_tiles * tile_p), dtype=torch.int32,
-                      device=chunk_pos.device)
-    lib = _kernel()
-    fn = lib.chunk_vote_i32 if chunk_pos.dtype == torch.int32 \
-        else lib.chunk_vote_u8
-    with torch.cuda.device(chunk_pos.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(chunk_pos.data_ptr(), chunk_vocab.data_ptr(),
-                 chunk_tile.data_ptr(), chunk_tile.shape[0],
-                 out.data_ptr(), n_tiles, tile_p, e_sub, chunks_per_step,
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"chunk_vote launch failed: CUDA error {err}")
-    chunk_counts.launches += 1
+    out, plan = chunk_vote_launch(chunk_pos, chunk_vocab, chunk_tile,
+                                  n_tiles, tile_p, e_sub)
+    if int(plan[n_tiles + 1]):
+        raise ValueError(_ORDER)
     return out
 
 

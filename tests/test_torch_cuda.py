@@ -235,10 +235,11 @@ def test_lanes_bytes_entry_flush_boundaries(cuda_device, body, dtype):
 
 
 def test_lanes_packed8_entry_flush_boundaries(cuda_device):
-    """Nibble rows with tiles of 0, 30, 31, 32, 62 and 400 int32 rows
-    around the 31-row (248-slot) flush; nibbles 8-15 count nothing."""
+    """Nibble rows with tiles of 0, 14, 15, 16, 30, 31, 32, 62 and 400
+    int32 rows around the bit-sliced kernel's 15-row flush and its
+    multiples; nibbles 8-15 count nothing."""
     rng = np.random.default_rng(7)
-    per_tile = [0, 30, 31, 32, 62, 400, 1]
+    per_tile = [0, 14, 15, 16, 30, 31, 32, 62, 400, 1]
     nib, bt = _deep_rows(rng, per_tile, 16, 128)
     words = np.zeros(nib.shape, np.uint32)
     for k in range(8):
@@ -246,6 +247,29 @@ def test_lanes_packed8_entry_flush_boundaries(cuda_device):
     got, want = lanes_both(cuda_device, words.view(np.int32), bt,
                            len(per_tile), 8, 128, "packed8")
     np.testing.assert_array_equal(got, want)
+
+
+def test_lanes_packed8_all_pad_and_single_value_words(cuda_device):
+    """All-pad words (nibble 15 everywhere) count nothing; words of one
+    value v in all eight nibbles, 15 and 16 rows deep, count 8 per row
+    in row v alone — every nibble field of one accumulator full at the
+    flush."""
+    rows = []
+    bt = []
+    for t, (value, depth) in enumerate([(15, 16), (0, 15), (7, 16),
+                                        (3, 30), (8, 15), (4, 1)]):
+        word = np.uint32(int(f"{value:x}" * 8, 16))
+        rows.append(np.full((depth, 256), word, np.uint32))
+        bt += [t] * depth
+    vb = np.concatenate(rows).view(np.int32)
+    bt = np.asarray(bt, np.int32)
+    got, want = lanes_both(cuda_device, vb, bt, 6, 8, 256, "packed8")
+    np.testing.assert_array_equal(got, want)
+    got = got.reshape(8, 6, 256)
+    assert got[:, 0].sum() == 0 and got[:, 4].sum() == 0
+    for t, value, depth in ((1, 0, 15), (2, 7, 16), (3, 3, 30), (5, 4, 1)):
+        assert (got[value, t] == 8 * depth).all()
+        assert got[:, t].sum() == 8 * depth * 256
 
 
 @pytest.mark.parametrize("body", ["packed4", "packed", "cmp", "packed8"])
@@ -323,3 +347,63 @@ def test_polish_mxu_and_xla_on_gpu_match_host(cuda_device, tmp_path):
         assert tvc.chunk_counts.launches == chunk_launches
     assert results["mxu"] == results["host"]
     assert results["xla"] == results["host"]
+
+
+def _skewed_chunks(rng, n_tiles, tile_p, e_sub, k, layout):
+    """A chunk stream by hand: tile 3 hundreds of chunks deep, tiles
+    10-14 with only pad chunks, tiles 20-21 with no chunk, the rest 1-4
+    chunks; each tile's chunk count a multiple of k."""
+    per_tile = rng.integers(1, 5, n_tiles) * k
+    per_tile[3] = 300 * k
+    per_tile[20:22] = 0
+    ct = np.repeat(np.arange(n_tiles, dtype=np.int32), per_tile)
+    e = e_sub * 128
+    cp = rng.integers(0, tile_p, (ct.size, e))
+    cv = rng.integers(0, 10, (ct.size, e))
+    pad = (rng.random(cp.shape) < 0.1) | ((ct >= 10) & (ct < 15))[:, None]
+    if layout == "uint8":
+        cp, cv = cp.astype(np.uint8), np.where(pad, 255, cv).astype(np.uint8)
+    else:
+        cp, cv = np.where(pad, -1, cp).astype(np.int32), cv.astype(np.int32)
+    return (cp.reshape(-1, 128), cv.reshape(-1, 128), ct)
+
+
+@pytest.mark.parametrize("tile_p,e_sub,k,layout", [
+    (128, 8, 1, "int32"), (128, 4, 2, "uint8"), (256, 8, 1, "uint8"),
+    (256, 8, 2, "int32"), (512, 2, 1, "int32"), (2048, 8, 1, "int32")])
+def test_chunk_kernel_deep_skewed_tiles(cuda_device, tile_p, e_sub, k,
+                                        layout):
+    """One CTA per tile: a tile 300 chunks deep (per k), tiles holding
+    only pad chunks and tiles holding no chunk (their columns are
+    written as zeros: the output is never zero-filled)."""
+    rng = np.random.default_rng(tile_p + e_sub + k)
+    n_tiles = 40
+    cp, cv, ct = _skewed_chunks(rng, n_tiles, tile_p, e_sub, k, layout)
+    before = tvc.chunk_counts.launches
+    got = tvc.chunk_counts(*on(cuda_device, cp, cv, ct), n_tiles, tile_p,
+                           e_sub, chunks_per_step=k)
+    torch.cuda.synchronize()
+    assert tvc.chunk_counts.launches == before + 1
+    want = tvc.chunk_counts_plain(*on(cuda_device, cp, cv, ct), n_tiles,
+                                  tile_p, e_sub)
+    assert torch.equal(got, want)
+    _, plan = tvc.chunk_vote_launch(*on(cuda_device, cp, cv, ct), n_tiles,
+                                    tile_p, e_sub)
+    d_ct = on(cuda_device, ct)[0]
+    assert torch.equal(plan[:n_tiles + 1], tvc.tile_chunk_start(d_ct,
+                                                                n_tiles))
+    assert int(plan[n_tiles + 1]) == 0
+    by_tile = got.view(8, n_tiles, tile_p).sum(dim=(0, 2)).cpu().numpy()
+    assert (by_tile[10:15] == 0).all() and (by_tile[20:22] == 0).all()
+    assert by_tile[3] > 200 * k * e_sub * 128 * 0.5
+
+
+def test_chunk_kernel_rejects_unordered_tiles(cuda_device):
+    """The launch sets the order flag and counts nothing; the wrapper
+    reads the flag and raises."""
+    cp = torch.full((3 * 8, 128), -1, dtype=torch.int32, device=cuda_device)
+    ct = torch.tensor([0, 2, 1], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="non-decreasing"):
+        tvc.chunk_counts(cp, cp, ct, 3)
+    _, plan = tvc.chunk_vote_launch(cp, cp, ct, 3)
+    assert int(plan[3 + 1]) == 1

@@ -134,3 +134,89 @@ def test_chunk_counts_checks_arguments():
         tvc.chunk_counts(cp, cp.to(torch.uint8), ct, 1)
     with pytest.raises(ValueError, match="chunk arrays"):
         tvc.chunk_counts(cp[:4], cp[:4], ct, 1)
+
+
+def _tile_prefix_case(seed, tile_p):
+    """Seeded chunks over 3,000 positions with a hot spot (a tile many
+    chunks deep) and a gap of tiles with no events: (cp, cv, ct,
+    n_tiles) as prepare_chunks packs them (every tile at least one
+    chunk), and the same stream with the gap tiles' pad chunks taken
+    out (tiles with no chunk) and stray chunks of tiles below 0 and past
+    the last added at its ends."""
+    rng = np.random.default_rng(seed)
+    P = 3000
+    pos = np.concatenate([rng.integers(0, P, 6000),
+                          rng.integers(700, 720, 20000)])
+    gap = (pos >= 1024) & (pos < 1024 + 3 * tile_p)
+    pos = pos[~gap]
+    vocab = rng.integers(0, 10, pos.size).astype(np.int32)
+    cp, cv, ct, n_tiles = tvc.prepare_chunks(pos, vocab, P, tile_p,
+                                             use_native=False)
+    e = cp.shape[0] // ct.size
+    empty = (ct >= 1024 // tile_p) & (ct < 1024 // tile_p + 3)
+    rows = np.repeat(~empty, e)
+    stray = rng.integers(0, 8, (2, 2 * e, 128)).astype(np.int32)
+    sparse = (np.concatenate([stray[0] % tile_p, cp[rows], stray[1]]),
+              np.concatenate([stray[1], cv[rows], stray[0]]),
+              np.concatenate([[-2, -1], ct[~empty], [n_tiles, n_tiles + 5]])
+              .astype(np.int32))
+    return (cp, cv, ct), sparse, n_tiles
+
+
+def port_counts_tp(cp, cv, ct, n_tiles, tile_p):
+    return tvc.chunk_counts(torch.from_numpy(cp), torch.from_numpy(cv),
+                            torch.from_numpy(ct), n_tiles,
+                            tile_p).numpy()
+
+
+@pytest.mark.parametrize("tile_p", [128, 256, 512])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_tile_chunk_start_ranges_match_jax(seed, tile_p):
+    """The tile prefix the CUDA wrapper builds: tile t's chunks
+    [start[t], start[t + 1]), counted alone, give the JAX split kernel's
+    columns of tile t; chunks of tiles outside [0, n_tiles) fall outside
+    every range; a tile with no chunk gets an empty range and zeros."""
+    dense, (cp, cv, ct), n_tiles = _tile_prefix_case(seed, tile_p)
+    want = np.asarray(jvp._vote_pallas_call(
+        *(jnp.asarray(a) for a in dense), n_tiles=n_tiles, interpret=True,
+        tile_p=tile_p, fused="split"))
+    starts = tvc.tile_chunk_start(torch.from_numpy(ct), n_tiles).numpy()
+    assert starts.dtype == np.int64 and starts.shape == (n_tiles + 1,)
+    np.testing.assert_array_equal(
+        starts, np.searchsorted(ct, np.arange(n_tiles + 1), side="left"))
+    assert starts[0] == 2 and starts[-1] == ct.size - 2
+    assert (np.diff(starts) == 0).sum() == 3  # the gap's tiles
+    assert (np.diff(starts) > 10).any()  # the hot spot's tile
+    e = cp.shape[0] // ct.size
+    for t in range(n_tiles):
+        c0, c1 = starts[t], starts[t + 1]
+        got = tvc.chunk_counts_plain(
+            torch.from_numpy(cp[c0 * e:c1 * e]),
+            torch.from_numpy(cv[c0 * e:c1 * e]),
+            torch.zeros(c1 - c0, dtype=torch.int32), 1, tile_p).numpy()
+        np.testing.assert_array_equal(
+            got, want[:, t * tile_p:(t + 1) * tile_p])
+    np.testing.assert_array_equal(
+        port_counts_tp(cp, cv, ct, n_tiles, tile_p), want)
+
+
+def test_chunk_counts_rejects_unordered_tiles():
+    """Tiles out of order break the contract that both the JAX kernels
+    (a tile is zeroed on its first chunk, so a revisit loses counts) and
+    the chunk vote kernel (one range of chunks per tile) rely on: the
+    wrapper raises, naming it, on any device."""
+    pos, vocab = rand_events(20000, 2048, 1, 0.3)
+    cp, cv, ct, n_tiles = tvc.prepare_chunks(pos, vocab, 2048)
+    perm = np.random.default_rng(0).permutation(ct.size)
+    e = cp.shape[0] // ct.size
+    cp = cp.reshape(ct.size, e, 128)[perm].reshape(cp.shape)
+    cv = cv.reshape(ct.size, e, 128)[perm].reshape(cv.shape)
+    ct = ct[perm]
+    with pytest.raises(ValueError, match="non-decreasing"):
+        port_counts(cp, cv, ct, n_tiles)
+    with pytest.raises(ValueError, match="tiles in order"):
+        tvc.tile_chunk_start(torch.from_numpy(ct), n_tiles)
+    jax_total = int(jax_counts(cp, cv, ct, n_tiles).sum())
+    plain = tvc.chunk_counts_plain(
+        *(torch.from_numpy(a) for a in (cp, cv, ct)), n_tiles)
+    assert jax_total < int(plain.sum())  # JAX drops the revisited counts

@@ -1,21 +1,21 @@
 """Shared helpers of the port's tests (tests/test_torch_*.py): seeded
 numpy workloads that go through both polypolish_tpu and
-polypolish_tpu_torch, and race-safe builds of polypolish_tpu's native
-library and replica binary, run once when this module is imported."""
+polypolish_tpu_torch.  Importing it also makes sure polypolish_tpu's
+native library and replica binary are built and loadable (race-safe
+builds of tests/torch_builds.py)."""
 
 from __future__ import annotations
 
 import contextlib
-import fcntl
 import importlib.util
 import io
 import os
 import re
-import subprocess
 
 import numpy as np
 
 import tests.synth as synth
+from tests.torch_builds import ensure_jax_native, ensure_jax_replica
 
 DENSE_V = 8
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
@@ -29,74 +29,6 @@ GOLDEN_CASES = ["tiny"] + sorted(_mg.CASES)
 
 _CLOCK = re.compile(r"\(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d\)|"
                     r"Time to run: \d+:\d\d:\d\d\.\d{6}")
-
-
-def _locked_build(path, src, cmd, force=False):
-    """Build ``path`` from ``src`` with ``cmd(output)`` under an fcntl
-    lock next to it, unless it is newer than the source (or ``force``);
-    the compiler writes a per-process temporary that is renamed into
-    place."""
-    with open(path + ".lock", "w") as lock_file:
-        fcntl.flock(lock_file, fcntl.LOCK_EX)
-        fresh = (os.path.exists(path)
-                 and os.path.getmtime(path) >= os.path.getmtime(src))
-        if fresh and not force:
-            return
-        tmp = f"{path}.tmp.{os.getpid()}"
-        try:
-            subprocess.run(cmd(tmp), check=True, capture_output=True,
-                           timeout=600)
-            os.replace(tmp, path)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-
-
-def ensure_jax_native():
-    """Build polypolish_tpu's native library race-safely and make its
-    loader retry; returns the loaded library or None.
-
-    polypolish_tpu/native/binding.py builds sam_packer.cc with no lock,
-    every process writing the same temporary, and a process whose build
-    or dlopen loses that race marks the build failed for the rest of its
-    life.  Parallel test workers on a fresh checkout race exactly so.
-    Here the build runs under a lock (``_locked_build``, the g++ command
-    of binding._build); then this resets the JAX binding's module state
-    (``_build_failed``) from the test side so that ``load_library()``
-    tries again.  No file of polypolish_tpu is edited.  If the library
-    in place cannot be loaded (a half-written file left by the unlocked
-    build), it is rebuilt once."""
-    from polypolish_tpu.native import binding
-
-    def cmd(out):
-        return ["g++", "-O3", "-march=native", "-std=c++17", "-shared",
-                "-fPIC", binding._SRC, "-o", out, "-lz"]
-
-    for force in (False, True):
-        _locked_build(binding._LIB, binding._SRC, cmd, force)
-        binding._build_failed = False
-        try:
-            lib = binding.load_library()
-        except OSError:  # dlopen of a half-written library
-            lib = None
-        if lib is not None:
-            return lib
-    return None
-
-
-def ensure_jax_replica():
-    """The same for polypolish_tpu's reference replica binary (ppref,
-    polypolish_tpu/native/replica.py build, whose unlocked build races
-    the same way and skips the replica tests of a worker that lost):
-    build it under the lock and reset ``replica._build_failed``.
-    Returns the binary's path or None."""
-    from polypolish_tpu.native import replica
-
-    _locked_build(replica._BIN, replica._SRC,
-                  lambda out: ["g++", "-O2", "-std=c++17", replica._SRC,
-                               "-o", out])
-    replica._build_failed = False
-    return replica.build()
 
 
 ensure_jax_native()
