@@ -51,8 +51,34 @@ Phases, in order; any failure raises and exits non-zero:
    that are not pads).  The chunk vote kernel is
    timed with its wrapper's device work (order check and tile prefix),
    alone, and as a whole ``chunk_counts`` call, on the E. coli pileup,
-   the E. coli overflow chunks and the repeat-rich pileup.  Then the
-   ``kernels`` JSON line and, last, the device JSON line.
+   the E. coli overflow chunks and the repeat-rich pileup.
+7. Windowed polish of the E. coli workload at 1 Mi windows (five
+   windows, POLYPOLISH_TPU_WINDOW_MIN=1).  First kernel A and the chunk
+   kernel against their plain versions, bitwise, on the second window
+   and the tail window at the shapes the device twin gives them (pack
+   from the window origin, overflow chunks of the window), their sum
+   equal to the host fold of the window.  Then the device twin with
+   POLYPOLISH_TPU_WINDOW_DEPTH 1, 2, 3, 2 and 1 (accepted, no effect:
+   the windows run in turn) and the host twin, each FASTA and stderr
+   equal to the unwindowed host run of phase 4; kernel A launched once
+   per window and the chunk kernel once per window with cap-overflow
+   events.  Wall times with no synchronising timer, and the stage split
+   (per window) with one.
+8. One 33.6 Mb contig (benchmarks/workload.py, paired 150 bp reads at
+   50x) at the default window settings: 8 Mb windows (four full ones
+   and a tail).  The kernels against their plain versions and the host
+   window fold on the second and the tail window as in phase 7, then
+   the device twin against the host twin, with the per-window stage
+   times and the device twin's peak device memory.
+9. ``filter`` on the E. coli, repeat-rich and repeats16 (a 5 kb segment
+   in 16 copies) workloads, each against the same run with the grid
+   threshold raised so that numpy decides every verdict (output SAMs
+   byte-identical, counts and stderr equal); the device grid step must
+   run on every file whose pair grid reaches 1 M entries, and repeats16
+   must reach it in both files.  Then ``full`` on the E. coli workload
+   against ``filter`` followed by a host-backend ``polish``.
+
+Then the ``kernels`` JSON line and, last, the device JSON line.
 
 Exits non-zero, printing no result, when torch.cuda.is_available() is
 false or the repository's port package is not importable.
@@ -495,6 +521,7 @@ def main() -> int:
              ("lanes", dict(backend="device", kernel_variant="lanes")),
              ("mxu", dict(backend="device", kernel_variant="mxu")),
              ("xla", dict(backend="xla")))
+    host_runs = {}
     for case, (fasta_c, sams_c) in cases.items():
         runs = {}
         for path, kwargs in paths:
@@ -532,6 +559,7 @@ def main() -> int:
                   f"{case}: {path} FASTA != host FASTA")
             check(runs[path][1] == runs["host"][1],
                   f"{case}: {path} stderr != host stderr")
+        host_runs[case] = runs["host"]
         fasta_out = runs["host"][0]
         check(fasta_out.startswith(">") and fasta_out.count("\n") == 2,
               f"{case}: malformed FASTA")
@@ -695,6 +723,13 @@ def main() -> int:
                   f"deepest tile {x['deepest_tile_chunks']} chunks, last "
                   f"tile (with the pad chunks) {x['last_tile_chunks']}")
 
+    # -- phases 7-9: windowed polish, default windows, filter and full -
+    ctx = dict(dev=dev, zero_counts=zero_counts, read_counts=read_counts,
+               lanes=LANES, errs=errs)
+    phase_windowed_ecoli(ctx, cases["ecoli50x"], host_runs["ecoli50x"])
+    phase_default_windows(ctx)
+    phase_filter_full(ctx, cases)
+
     def entry(name, source, replaces, label):
         ms, plain, lib, _, _ = timed[label]
         return {"name": name, "route": "cuda",
@@ -736,6 +771,363 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# -- phases 7-9 --------------------------------------------------------
+
+WINDOW_ENV = ("POLYPOLISH_TPU_WINDOW_MIN", "POLYPOLISH_TPU_WINDOW",
+              "POLYPOLISH_TPU_WINDOW_DEPTH")
+BIG_LEN = 33_600_000  # four full 8 Mb windows and a tail
+BIG_COVERAGE = 50.0
+GRID_MIN = 1_000_000  # the filter's device grid threshold
+
+
+@contextlib.contextmanager
+def window_env(**env):
+    """The window settings given (unset: the defaults) for one run."""
+    old = {k: os.environ.get(k) for k in WINDOW_ENV}
+    for k in WINDOW_ENV:
+        os.environ.pop(k, None)
+    os.environ.update({k: str(v) for k, v in env.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def polish_run(ctx, fasta, sams, timer=None, **kwargs):
+    """(FASTA, stderr with the clock masked, wall s, launches, timer) of
+    one polish call, the launch counters zeroed just before it."""
+    from polypolish_tpu_torch.pipeline.polish import polish
+    from polypolish_tpu_torch.utils.profiling import StageTimer
+
+    timer = timer if timer is not None else StageTimer()
+    out, err = io.StringIO(), io.StringIO()
+    ctx["zero_counts"]()
+    t0 = time.monotonic()
+    with contextlib.redirect_stderr(err):
+        polish(None, 0.2, 0.5, 10, 5, False, fasta, sams, out=out,
+               device=ctx["dev"], timer=timer, **kwargs)
+    if ctx["dev"].type == "cuda":
+        torch.cuda.synchronize()
+    total = time.monotonic() - t0
+    counts = ctx["read_counts"]()
+    return out.getvalue(), _CLOCK.sub("", err.getvalue()), total, counts, \
+        timer
+
+
+def window_plan(fasta, sams, w_pad, ctx=None, check_windows=()):
+    """(windows, windows with cap-overflow events) of the device twin
+    over a single-contig workload: what it must launch kernel A and
+    the chunk kernel for.  For each window index in ``check_windows``
+    (negative: from the end), kernel A on that window's pack and the
+    chunk kernel on its overflow chunks are held bitwise against their
+    plain versions on the same tensors, and their sum against the host
+    fold of the window (and zero on the pad positions past its end)."""
+    from polypolish_tpu_torch.ops import vote_chunks, vote_lanes
+
+    pr, name, P, _, _ = parse(fasta, sams)
+    n_want = -(-P // w_pad)
+    to_check = {k % n_want for k in check_windows}
+    try:
+        n_win = n_ov = 0
+        for k, w_lo in enumerate(range(0, P, w_pad)):
+            pack = pr.lanes(name, vote_lanes.R_SUB, vote_lanes.TILE_W,
+                            num_positions=w_pad, packed4=True, cap=True,
+                            w_lo=w_lo)
+            check(pack is not None, f"window pack at {w_lo}")
+            n_win += 1
+            n_ov += pack.n_overflow > 0
+            try:
+                if k in to_check:
+                    check_window_kernels(ctx, pr, name, pack, w_lo,
+                                         min(P, w_lo + w_pad), w_pad,
+                                         vote_chunks, vote_lanes)
+            finally:
+                pack.close()
+    finally:
+        pr.close()
+    check(n_win == n_want, f"{n_win} windows of {w_pad} over {P}")
+    return n_win, n_ov
+
+
+def check_window_kernels(ctx, pr, name, pack, w_lo, w_hi, w_pad,
+                         vote_chunks, vote_lanes):
+    """Kernel A and the chunk kernel against their plain versions on one
+    window of the device twin, at the shapes it gives them."""
+    dev, errs = ctx["dev"], ctx["errs"]
+    label = f"window [{w_lo}, {w_hi}) of {w_pad}"
+    n_tiles = w_pad // vote_lanes.TILE_W
+    check(pack.n_tiles == n_tiles, f"{label}: {pack.n_tiles} tiles")
+    vb = torch.from_numpy(pack.vb).to(dev)
+    bt = torch.from_numpy(pack.block_tile).to(dev)
+    args = (vb, bt, n_tiles, vote_lanes.R_SUB, vote_lanes.TILE_W)
+    got = vote_lanes.lanes_counts(*args)
+    want = vote_lanes.lanes_counts_plain(*args)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    check(err == 0, f"lanes_vote_packed4 != plain on {label} (max err {err})")
+    errs["lanes_vote_packed4"] = max(errs["lanes_vote_packed4"], err)
+    total = got
+    n_ov = int(pack.n_overflow)
+    if n_ov:
+        cp, cv, ct, ov_tiles = vote_chunks.prepare_chunks(
+            pack.ov_pos.astype(np.int64), pack.ov_vid.astype(np.int32), w_pad)
+        cp, cv, ct = (torch.from_numpy(a).to(dev) for a in (cp, cv, ct))
+        got_b = vote_chunks.chunk_counts(cp, cv, ct, ov_tiles)
+        want_b = vote_chunks.chunk_counts_plain(cp, cv, ct, ov_tiles)
+        torch.cuda.synchronize()
+        err = max_abs_err(got_b, want_b)
+        check(err == 0, f"chunk_vote != plain on {label} overflow (max err "
+                        f"{err})")
+        errs["chunk_vote"] = max(errs["chunk_vote"], err)
+        total = total + got_b[:, :w_pad]
+    host = pr.fold_window(name, w_lo, w_hi, (5, 0.5, 0.2))[0]
+    w_real = w_hi - w_lo
+    check(np.array_equal(total[:, :w_real].cpu().numpy(), host)
+          and int(total[:, w_real:].abs().sum()) == 0,
+          f"{label}: kernel A + chunk kernel counts != host window fold")
+    print(f"lanes_vote_packed4 and chunk_vote == plain on {label}: "
+          f"{tuple(vb.shape)} rows, {n_ov} overflow events, "
+          f"{int(want.sum())} + {n_ov} votes == host window fold, "
+          f"{w_pad - w_real} pad positions empty")
+
+
+def check_window_launches(ctx, label, counts, n_win, n_ov):
+    want = {k: 0 for k in ctx["lanes"]}
+    want["lanes_vote_packed4"] = n_win
+    want["chunk_vote"] = n_ov
+    check(counts == want, f"{label}: launches {counts}, want {want}")
+
+
+def laps_by_window(timer, first="fold"):
+    """The timer's laps cut at each ``first`` stage: one dict of stage
+    seconds per loop iteration of a windowed path."""
+    out = []
+    for name, dt in timer.laps:
+        if name == first:
+            out.append({})
+        if out:  # the stages before the first window's fold are not its
+            out[-1][name] = out[-1].get(name, 0.0) + dt
+    return out
+
+
+def fmt_stages(stages):
+    return " ".join(f"{k} {v:.3f}" for k, v in stages.items())
+
+
+def phase_windowed_ecoli(ctx, case, host_ref):
+    """Phase 7: E. coli through the windowed paths at 1 Mi windows
+    (five windows), the device twin with POLYPOLISH_TPU_WINDOW_DEPTH at
+    1, 2, 3, 2 and 1 and the host twin, each equal to the unwindowed
+    host run of phase 4."""
+    from polypolish_tpu_torch.ops.vote_lanes import TILE_W
+    from polypolish_tpu_torch.utils.profiling import StageTimer
+
+    t0 = time.monotonic()
+    fasta, sams = case
+    window = 1 << 20
+    w_pad = -(-window // TILE_W) * TILE_W
+    n_win, n_ov = window_plan(fasta, sams, w_pad, ctx, check_windows=(1, -1))
+    print(f"windowed ecoli50x: window {window}, w_pad {w_pad}, {n_win} "
+          f"windows, {n_ov} with overflow events")
+    runs = [(f"device depth {d}{' again' if k > 2 else ''}",
+             dict(backend="device"), d, None)
+            for k, d in enumerate((1, 2, 3, 2, 1))]
+    runs += [("host twin", dict(backend="host"), 2, None),
+            ("device depth 2, synchronising timer", dict(backend="device"),
+             2, StageTimer(sync_device=ctx["dev"]))]
+    for label, kwargs, depth, timer in runs:
+        with window_env(POLYPOLISH_TPU_WINDOW_MIN=1,
+                        POLYPOLISH_TPU_WINDOW=window,
+                        POLYPOLISH_TPU_WINDOW_DEPTH=depth):
+            fasta_out, err, total, counts, timer = polish_run(
+                ctx, fasta, sams, timer, **kwargs)
+        check(fasta_out == host_ref[0],
+              f"windowed ecoli50x {label}: FASTA != unwindowed host FASTA")
+        check(err == host_ref[1],
+              f"windowed ecoli50x {label}: stderr != unwindowed host stderr")
+        if kwargs["backend"] == "device":
+            check_window_launches(ctx, f"windowed ecoli50x {label}", counts,
+                                  n_win, n_ov)
+        else:
+            check(sum(counts.values()) == 0,
+                  f"windowed host twin launched a kernel {counts}")
+        print(f"windowed ecoli50x {label}: total {total:.3f} s | "
+              f"{fmt_stages(timer.seconds)} | launches {counts}")
+        if timer.sync_device is not None:
+            for k, stages in enumerate(laps_by_window(timer)):
+                print(f"  window iteration {k}: {fmt_stages(stages)}")
+    print("windowed ecoli50x: FASTA and stderr == unwindowed host on every "
+          "run")
+    print(f"phase 7 (windowed E. coli): {time.monotonic() - t0:.1f} s")
+
+
+def phase_default_windows(ctx):
+    """Phase 8: one 33.6 Mb contig at the default window settings (8 Mb
+    windows): the device twin and the host twin agree."""
+    import workload
+    from polypolish_tpu_torch.ops.vote_lanes import TILE_W
+    from polypolish_tpu_torch.pipeline.polish import _window_size
+    from polypolish_tpu_torch.utils.profiling import StageTimer
+
+    t0 = time.monotonic()
+    fasta_t, sams_t, info = workload.make_paired_case(
+        seed=0, genome_len=BIG_LEN, coverage=BIG_COVERAGE)
+    fasta, sams = workload.write_case(DATA_DIR, "contig33m", fasta_t, sams_t)
+    del fasta_t, sams_t
+    sam_bytes = sum(os.path.getsize(p) for p in sams)
+    print(f"33.6 Mb workload: {BIG_LEN} bp at {BIG_COVERAGE}x, "
+          f"{info['n_alignments']} alignments, {sam_bytes} B of SAM, made "
+          f"in {time.monotonic() - t0:.1f} s")
+    with window_env():
+        w_pad = -(-_window_size() // TILE_W) * TILE_W
+        n_win, n_ov = window_plan(fasta, sams, w_pad, ctx,
+                                  check_windows=(1, -1))
+        print(f"33.6 Mb: w_pad {w_pad}, {n_win} windows, {n_ov} with "
+              f"overflow events")
+        # the peak counts what earlier phases still hold on the card
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        dev_run = polish_run(ctx, fasta, sams, backend="device")
+        peak = torch.cuda.max_memory_allocated()
+        sync_run = polish_run(ctx, fasta, sams,
+                              StageTimer(sync_device=ctx["dev"]),
+                              backend="device")
+        host_run = polish_run(ctx, fasta, sams, backend="host")
+    for label, run in (("device twin", dev_run),
+                       ("device twin, synchronising timer", sync_run),
+                       ("host twin", host_run)):
+        fasta_out, err, total, counts, timer = run
+        check(fasta_out == host_run[0] and err == host_run[1],
+              f"33.6 Mb {label}: FASTA or stderr != host twin")
+        if label.startswith("device"):
+            check_window_launches(ctx, f"33.6 Mb {label}", counts, n_win,
+                                  n_ov)
+        print(f"33.6 Mb {label}: total {total:.3f} s | "
+              f"{fmt_stages(timer.seconds)} | launches {counts}")
+        for k, stages in enumerate(laps_by_window(timer)):
+            if label != "device twin":
+                print(f"  window iteration {k}: {fmt_stages(stages)}")
+    check(host_run[0].startswith(">") and host_run[0].count("\n") == 2,
+          "33.6 Mb: malformed FASTA")
+    print(f"33.6 Mb: device twin FASTA == host twin FASTA "
+          f"({len(host_run[0])} bytes), stderr equal; peak device memory "
+          f"of the device twin {peak} B, {peak - held} B above the {held} B "
+          f"held before it")
+    for p in sams + [fasta]:
+        os.remove(p)
+    print(f"phase 8 (33.6 Mb at the default windows): "
+          f"{time.monotonic() - t0:.1f} s")
+
+
+def file_digest(path):
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def phase_filter_full(ctx, cases):
+    """Phase 9: filter on ecoli50x, repeats and repeats16 through the
+    device grid step against numpy deciding every verdict; full on
+    ecoli50x against filter + polish on the host backend."""
+    import workload
+    from polypolish_tpu_torch.models.pairscreen import pair_screen_step
+    from polypolish_tpu_torch.pipeline import filtering
+    from polypolish_tpu_torch.pipeline.full import polish_paired
+    from polypolish_tpu_torch.pipeline.polish import _pad_bucket
+
+    t0 = time.monotonic()
+    fasta_t, sams_t, _ = workload.make_paired_case(
+        seed=0, repeat_len=5000, repeat_copies=16)
+    cases = dict(cases)
+    cases["repeats16"] = workload.write_case(DATA_DIR, "repeats16", fasta_t,
+                                             sams_t)
+    del fasta_t, sams_t
+    print(f"repeats16 workload made in {time.monotonic() - t0:.1f} s")
+    threshold = filtering._DEVICE_GRID_THRESHOLD
+    check(threshold == GRID_MIN, f"grid threshold {threshold}")
+    for case in ("ecoli50x", "repeats", "repeats16"):
+        in1, in2 = cases[case][1]
+        outs = [os.path.join(DATA_DIR, f"{case}_filtered_{i}.sam")
+                for i in (1, 2)]
+        with contextlib.redirect_stderr(io.StringIO()):
+            files = filtering.load_alignments(in1, in2)
+        grids = [filtering.pair_grid(files[w], files[1 - w]).seg.size
+                 for w in (0, 1)]
+        del files
+        results = {}
+        for label, thr in (("device step", threshold), ("numpy", 1 << 62)):
+            filtering._DEVICE_GRID_THRESHOLD = thr
+            pair_screen_step.launches = 0
+            err = io.StringIO()
+            t1 = time.monotonic()
+            try:
+                with contextlib.redirect_stderr(err):
+                    counts = filtering.filter_pairs(in1, in2, *outs,
+                                                    device=ctx["dev"])
+            finally:
+                filtering._DEVICE_GRID_THRESHOLD = threshold
+            total = time.monotonic() - t1
+            steps = pair_screen_step.launches
+            results[label] = (counts, [file_digest(p) for p in outs],
+                              _CLOCK.sub("", err.getvalue()))
+            passes = re.findall(r"([\d,]+) (pass|fail)", err.getvalue())
+            print(f"filter {case} ({label}): total {total:.3f} s | grid "
+                  f"entries per file {grids} | device steps {steps} | "
+                  f"alignments before/after {counts} | "
+                  f"{' '.join(' '.join(x) for x in passes)}")
+            want_steps = sum(g >= thr for g in grids)
+            check(steps == want_steps,
+                  f"filter {case} ({label}): {steps} device steps, want "
+                  f"{want_steps}")
+        check(results["device step"] == results["numpy"],
+              f"filter {case}: device-step run != numpy run (SAMs, counts "
+              f"or stderr)")
+        if case == "repeats16":
+            check(min(grids) >= GRID_MIN,
+                  f"repeats16 grids {grids} below {GRID_MIN}")
+        print(f"filter {case}: output SAMs byte-identical, pass and fail "
+              f"counts equal to numpy deciding every verdict")
+        if case != "ecoli50x":
+            for p in outs:
+                os.remove(p)
+
+    # full on ecoli50x == filter, then polish on the host backend
+    fasta, (in1, in2) = cases["ecoli50x"]
+    filtered = [os.path.join(DATA_DIR, f"ecoli50x_filtered_{i}.sam")
+                for i in (1, 2)]
+    host_out = polish_run(ctx, fasta, filtered, backend="host")
+    out = io.StringIO()
+    ctx["zero_counts"]()
+    t1 = time.monotonic()
+    with contextlib.redirect_stderr(io.StringIO()):
+        polish_paired(fasta, in1, in2, out=out, device=ctx["dev"],
+                      keep_filtered=os.path.join(DATA_DIR, "full"))
+    total = time.monotonic() - t1
+    counts = ctx["read_counts"]()
+    check(out.getvalue() == host_out[0],
+          "full ecoli50x FASTA != filter + host polish FASTA")
+    # unwindowed lanes path (4.6 Mb): one pack over the padded contig
+    with open(fasta) as f:
+        f.readline()
+        P = len(f.readline().strip())
+    n_win, n_ov = window_plan(fasta, filtered, _pad_bucket(P))
+    check_window_launches(ctx, "full ecoli50x", counts, n_win, n_ov)
+    print(f"full ecoli50x: total {total:.3f} s | launches {counts} | FASTA "
+          f"== filter + host polish ({len(host_out[0])} bytes)")
+    shutil.rmtree(os.path.join(DATA_DIR, "full"))
+    for p in filtered:
+        os.remove(p)
+    print(f"phase 9 (filter and full): {time.monotonic() - t0:.1f} s")
 
 
 if __name__ == "__main__":

@@ -1,10 +1,11 @@
 """ctypes binding for the native SAM packer.
 
-The subset of the JAX package's binding that the ``polish`` slice
-calls, over the port's own copy of its C++ engine (sam_packer.cc,
-verbatim): the run parse, the fold / sparse / chunks / lanes views, the
-chunk packer, the host consensus, the sequential f64 sum and the
---debug TSV writer.  native/loader.py builds the library.
+The subset of the JAX package's binding that the ``polish`` and
+``filter`` subcommands call, over the port's own copy of its C++ engine
+(sam_packer.cc, verbatim): the run parse, the fold / window fold /
+sparse / chunks / lanes views, the chunk packer, the host consensus,
+the sequential f64 sums, the --debug TSV writer, and the filter's pair
+quick-parse and verdict rewrite.  native/loader.py builds the library.
 """
 
 from __future__ import annotations
@@ -30,6 +31,33 @@ class _PPChunksView(ctypes.Structure):
         ("chunk_tile", ctypes.POINTER(ctypes.c_int32)),
         ("n_chunks", ctypes.c_int64),
         ("n_tiles", ctypes.c_int64),
+        ("handle", ctypes.c_void_p),
+    ]
+
+
+class _PPQuickView(ctypes.Structure):
+    _fields_ = [
+        ("flags", ctypes.POINTER(ctypes.c_int32) * 2),
+        ("ref_id", ctypes.POINTER(ctypes.c_int32) * 2),
+        ("start", ctypes.POINTER(ctypes.c_int64) * 2),
+        ("end", ctypes.POINTER(ctypes.c_int64) * 2),
+        ("name_id", ctypes.POINTER(ctypes.c_int64) * 2),
+        ("n", ctypes.c_int64 * 2),
+        ("n_names", ctypes.c_int64 * 2),
+        ("line_start", ctypes.POINTER(ctypes.c_int64) * 2),
+        ("line_end", ctypes.POINTER(ctypes.c_int64) * 2),
+        ("status", ctypes.c_int),
+        ("error", ctypes.c_char_p),
+        ("handle", ctypes.c_void_p),
+    ]
+
+
+class _PPRewriteView(ctypes.Structure):
+    _fields_ = [
+        ("pass_count", ctypes.c_int64),
+        ("fail_count", ctypes.c_int64),
+        ("status", ctypes.c_int),
+        ("error", ctypes.c_char_p),
         ("handle", ctypes.c_void_p),
     ]
 
@@ -167,6 +195,38 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pp_madvise_huge.restype = None
     lib.pp_sum_f64_seq.argtypes = [P(f64), i64]
     lib.pp_sum_f64_seq.restype = f64
+    lib.pp_sum_f64_seq_init.argtypes = [P(f64), i64, f64]
+    lib.pp_sum_f64_seq_init.restype = f64
+    lib.pp_fold_window.restype = None
+    lib.pp_fold_window.argtypes = [
+        P(_PPRunsView),
+        i32,                                # contig id
+        i64,                                # w_lo
+        i64,                                # w_hi
+        ctypes.c_void_p,                    # counts_out (8, W) or NULL
+        P(f64),                             # depth_out (W)
+        i32,                                # parallel
+        i32,                                # min_depth
+        f64,                                # fraction_valid
+        f64,                                # fraction_invalid
+        ctypes.c_void_p,                    # valid_out (W)
+        ctypes.c_void_p,                    # invalid_out (W)
+        ctypes.c_void_p,                    # low_out (W)
+    ]
+    lib.pp_quick_parse_pair.restype = P(_PPQuickView)
+    lib.pp_quick_parse_pair.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+    lib.pp_free_quick.argtypes = [P(_PPQuickView)]
+    lib.pp_free_quick.restype = None
+    lib.pp_rewrite_sam.restype = P(_PPRewriteView)
+    lib.pp_rewrite_sam.argtypes = [
+        ctypes.c_char_p,                    # in filename
+        ctypes.c_char_p,                    # out filename
+        P(ctypes.c_uint8),                  # verdicts (0/1 per record)
+        i64,                                # n_verdicts
+        P(i64),                             # line_end offsets or NULL
+    ]
+    lib.pp_free_rewrite.argtypes = [P(_PPRewriteView)]
+    lib.pp_free_rewrite.restype = None
     lib.pp_fold_contig.restype = P(_PPFoldView)
     lib.pp_fold_contig.argtypes = [
         P(_PPRunsView),
@@ -367,6 +427,83 @@ def sum_f64_seq(arr) -> float:
     return float(lib.pp_sum_f64_seq(
         arr.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), arr.size
     ))
+
+
+def sum_f64_seq_init(arr, init: float) -> float:
+    """Strict sequential left-fold continuing from ``init`` (the
+    windowed paths' depth total: one fold across all windows)."""
+    lib = load_library()
+    arr = np.ascontiguousarray(arr, dtype=np.float64)
+    return float(lib.pp_sum_f64_seq_init(
+        arr.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), arr.size,
+        float(init),
+    ))
+
+
+def quick_parse_pair(file1, file2):
+    """Quick-parse both paired SAM files (plain, gzip or BAM) with shared
+    name/ref interning.
+
+    Returns a list of two dicts with numpy columns (flags, ref_id,
+    start, end, name_id, line_end) plus 'n_names'; raises
+    PolypolishError on the reference's fatal conditions."""
+    lib = load_library()
+    view = lib.pp_quick_parse_pair(os.fsencode(file1), os.fsencode(file2))
+    try:
+        v = view.contents
+        if v.status != 0:
+            quit_with_error(v.error.decode("utf-8", errors="replace"))
+        out = []
+        for i in range(2):
+            n = int(v.n[i])
+
+            def arr(ptr, dtype):
+                if n == 0:
+                    return np.empty(0, dtype=dtype)
+                return np.ctypeslib.as_array(ptr, shape=(n,)).copy()
+
+            out.append({
+                "flags": arr(v.flags[i], np.int32),
+                "ref_id": arr(v.ref_id[i], np.int32),
+                "start": arr(v.start[i], np.int64),
+                "end": arr(v.end[i], np.int64),
+                "name_id": arr(v.name_id[i], np.int64),
+                "n_names": int(v.n_names[i]),
+                # aligned-record line-end offsets: the verdict rewrite
+                # then copies the input without scanning it again
+                "line_end": arr(v.line_end[i], np.int64),
+            })
+        return out
+    finally:
+        lib.pp_free_quick(view)
+
+
+def rewrite_sam_native(in_filename, out_filename, verdicts,
+                       line_end=None):
+    """Native SAM re-stream of the filter subcommand: copies the input,
+    tagging aligned records whose verdict is False with ``ZP:Z:fail``
+    (filter.rs:296-343).  ``line_end``: the aligned records' line-end
+    offsets from quick_parse_pair, which make the rewrite scan-free.
+    Returns (pass_count, fail_count)."""
+    lib = load_library()
+    v8 = np.ascontiguousarray(verdicts, dtype=np.uint8)
+    if line_end is not None and len(line_end) == v8.shape[0]:
+        le = np.ascontiguousarray(line_end, dtype=np.int64)
+        le_ptr = le.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+    else:
+        le_ptr = None
+    view = lib.pp_rewrite_sam(
+        os.fsencode(in_filename), os.fsencode(out_filename),
+        v8.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), v8.shape[0],
+        le_ptr,
+    )
+    try:
+        v = view.contents
+        if v.status != 0:
+            quit_with_error(v.error.decode("utf-8", errors="replace"))
+        return int(v.pass_count), int(v.fail_count)
+    finally:
+        lib.pp_free_rewrite(view)
 
 
 def madvise_huge_np(*arrays) -> None:

@@ -8,9 +8,11 @@ contig the runs are then
 - folded in C++ into the (8, P) dense count tensor + sequential-exact
   f64 depth + sparse tier (host backend; reference pileup.rs:56-65
   semantics) — or, with ``want_counts=False``, into the depth and
-  thresholds alone (device backend), and
+  thresholds alone (device backend); whole, or one position window at
+  a time for huge contigs (``fold_window``), and
 - packed in C++ into the lane-aligned layout of the lanes vote kernel
-  (``lanes``), with the cap-overflow events alongside.
+  (``lanes``, whole or from a window origin ``w_lo``), with the
+  cap-overflow events alongside.
 """
 
 from __future__ import annotations
@@ -134,6 +136,36 @@ class ParsedRuns:
             return counts, depth, sparse, (valid, invalid,
                                            low.view(np.bool_))
         return counts, depth, sparse
+
+    def fold_window(self, contig_name: str, w_lo: int, w_hi: int,
+                    thresholds, want_counts: bool = True):
+        """The fold of positions [w_lo, w_hi) only (pp_fold_window), for
+        huge contigs: returns (counts (8, W) int32, or None with
+        want_counts=False, depth (W,) f64, (valid_thr i32, invalid_thr
+        i32, low_depth bool)), W = w_hi - w_lo; the working set is O(W)
+        instead of O(P).  The sparse tier comes from .sparse() once,
+        outside the window loop.  Every array is a pooled buffer keyed
+        by W that the next window fold of that width overwrites."""
+        cid = self.contig_names.index(contig_name)
+        W = w_hi - w_lo
+        counts = _pooled_buffer(("w_counts", W), (DENSE_V, W), np.int32) \
+            if want_counts else None
+        depth = _pooled_buffer(("w_depth", W), (W,), np.float64)
+        valid = _pooled_buffer(("w_valid", W), (W,), np.int32)
+        invalid = _pooled_buffer(("w_invalid", W), (W,), np.int32)
+        low = _pooled_buffer(("w_low", W), (W,), np.uint8)
+        min_depth, f_valid, f_invalid = thresholds
+        self._lib.pp_fold_window(
+            self._view, cid, w_lo, w_hi,
+            counts.ctypes.data_as(ctypes.c_void_p)
+            if counts is not None else None,
+            depth.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            1, int(min_depth), float(f_valid), float(f_invalid),
+            valid.ctypes.data_as(ctypes.c_void_p),
+            invalid.ctypes.data_as(ctypes.c_void_p),
+            low.ctypes.data_as(ctypes.c_void_p),
+        )
+        return counts, depth, (valid, invalid, low.view(np.bool_))
 
     def sparse(self, contig_name: str):
         """Sparse-tier counts (pos i64, vid i64, cnt i64, ascending) for

@@ -23,6 +23,12 @@ Three backends (the JAX package's ``pallas`` is the port's
 - ``host``: the C++ fold of the (8, P) counts plus the C++ consensus —
   an independent reference for the device paths, never a fallback.
 
+Contigs of POLYPOLISH_TPU_WINDOW_MIN positions or more (32,000,000 by
+default; 0 disables) take the windowed path on backends ``host`` and
+``device`` (variant lanes) unless --debug is on: position windows of
+POLYPOLISH_TPU_WINDOW (8,000,000) keep the host buffers O(window)
+instead of O(P), one window after another.
+
 All are byte-identical to polypolish_tpu (run with the same backend and
 POLYPOLISH_TPU_KERNEL) for the FASTA, the --debug TSV and the stderr
 narrative.
@@ -30,6 +36,7 @@ narrative.
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 from typing import Dict, List, Optional, TextIO, Tuple
@@ -102,8 +109,8 @@ def polish(
     ``kernel_variant`` ("lanes" or "mxu") picks the vote kernel of
     backend "device" (the JAX package's POLYPOLISH_TPU_KERNEL).
     ``timer`` (optional) collects wall seconds per stage: parse, fold,
-    pack, upload, kernel_a, kernel_b, scatter, consensus, fetch,
-    finish."""
+    pack, upload, kernel_a, kernel_b, scatter, consensus, gather (the
+    windowed device path's sparse columns), fetch, finish."""
     start_time = time.monotonic()
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}; got "
@@ -331,6 +338,21 @@ def polish_one_sequence(
 
     orig_id = _orig_ids_for_seq(contig.seq, vocab)
     thresholds = (min_depth, fraction_valid, fraction_invalid)
+    # huge contigs stream through position windows (O(window) host
+    # buffers), under the JAX package's conditions; --debug needs the
+    # whole contig's counts
+    windowed = (debug_file is None and seq_len >= _window_min()
+                and runs_handle.base_vocab_len <= DENSE_V)
+    if windowed and backend == "host":
+        return _polish_host_runs_windowed(
+            runs_handle, name, description, contig.seq, orig_id, vocab,
+            out, thresholds, timer,
+        )
+    if windowed and backend == "device" and variant == "lanes":
+        return _polish_device_runs_windowed(
+            runs_handle, name, description, contig.seq, orig_id, vocab,
+            out, thresholds, device, timer,
+        )
     if backend == "host":
         with timer.stage("fold"):
             counts, depth, sparse, thr = runs_handle.fold(
@@ -409,6 +431,202 @@ def finish_sequence(
         len(seq), total_depth, zero_depth_count, changed_count
     )
     return len(polished_seq)
+
+
+def _window_min() -> int:
+    """Contig length from which the windowed paths run
+    (POLYPOLISH_TPU_WINDOW_MIN; 0 disables windowing)."""
+    try:
+        v = int(os.environ.get("POLYPOLISH_TPU_WINDOW_MIN", 32_000_000))
+    except ValueError:
+        v = 32_000_000
+    return v if v > 0 else (1 << 62)
+
+
+def _window_size() -> int:
+    """Window width (POLYPOLISH_TPU_WINDOW, default 8,000,000).  An
+    explicit value may be arbitrarily small (tests use tiny windows on
+    short genomes to cross many window boundaries)."""
+    raw = os.environ.get("POLYPOLISH_TPU_WINDOW")
+    if raw is not None:
+        try:
+            v = int(raw)
+            if v > 0:
+                return v
+        except ValueError:
+            pass
+    return 8_000_000
+
+
+class _WindowTally:
+    """What the windowed paths keep of a contig across windows: the edit
+    list and the stats.  The depth total is one strict f64 left-fold
+    over all windows in position order (polish.rs:177), carried from
+    window to window, never a sum of per-window sums."""
+
+    def __init__(self) -> None:
+        self.changed_pos: List[np.ndarray] = []
+        self.changed_vid: List[np.ndarray] = []
+        self.total_depth = 0.0
+        self.zero_depth_count = 0
+        self.changed_count = 0
+
+    def add(self, w_lo: int, status, new_id, depth) -> None:
+        ch = np.nonzero(status == ST_CHANGED)[0]
+        if ch.size:
+            self.changed_pos.append((ch + w_lo).astype(np.int64))
+            self.changed_vid.append(new_id[ch].copy())
+            self.changed_count += int(ch.size)
+        self.total_depth = binding.sum_f64_seq_init(depth, self.total_depth)
+        self.zero_depth_count += int(np.count_nonzero(depth == 0.0))
+
+    def write(self, name, description, seq, vocab, out) -> int:
+        """Splice the edits, write the FASTA record and the contig's
+        stats; returns the polished length."""
+        cp = (np.concatenate(self.changed_pos) if self.changed_pos
+              else np.empty(0, np.int64))
+        cv = (np.concatenate(self.changed_vid) if self.changed_vid
+              else np.empty(0, np.int32))
+        polished_seq = _apply_edits_sparse(seq, cp, cv, vocab)
+        write_fasta_record(out, name, description, polished_seq)
+        print_polishing_info(len(seq), self.total_depth,
+                             self.zero_depth_count, self.changed_count)
+        return len(polished_seq)
+
+
+def _polish_host_runs_windowed(
+    runs_handle, name, description, seq, orig_id, vocab, out, thresholds,
+    timer,
+) -> int:
+    """The host backend for huge contigs: C++ fold and consensus in
+    position windows of O(W) memory (pp_fold_window), with the sparse
+    tier overridden inside the window whose full counts are at hand
+    (pregathered=False).  Counterpart of the JAX package's
+    _polish_host_runs_windowed (polish.rs:157-227 at 100 Mb scale)."""
+    seq_len = len(seq)
+    sp_pos, sp_vid, sp_cnt = runs_handle.sparse(name)
+    min_depth = thresholds[0]
+    W = _window_size()
+    tally = _WindowTally()
+    for w_lo in range(0, seq_len, W):
+        w_hi = min(seq_len, w_lo + W)
+        with timer.stage("fold"):
+            counts_w, depth_w, (valid_w, invalid_w, low_w) = \
+                runs_handle.fold_window(name, w_lo, w_hi, thresholds)
+        with timer.stage("consensus"):
+            orig_w = orig_id[w_lo:w_hi]
+            new_id_w, status_w = binding.consensus_dense_native(
+                counts_w, valid_w, invalid_w, low_w, orig_w
+            )
+            i0, i1 = np.searchsorted(sp_pos, [w_lo, w_hi])
+            if i1 > i0:
+                consensus_sparse_override(
+                    counts_w, sp_pos[i0:i1] - w_lo, sp_vid[i0:i1],
+                    sp_cnt[i0:i1], valid_w, invalid_w, depth_w, min_depth,
+                    orig_w, new_id_w, status_w,
+                )
+        with timer.stage("finish"):
+            tally.add(w_lo, status_w, new_id_w, depth_w)
+    with timer.stage("finish"):
+        return tally.write(name, description, seq, vocab, out)
+
+
+def _polish_device_runs_windowed(
+    runs_handle, name, description, seq, orig_id, vocab, out, thresholds,
+    device, timer,
+) -> int:
+    """The device backend (variant lanes) for huge contigs: depth and
+    thresholds from pp_fold_window (no host counts), votes from kernel
+    A on each window's native packed4 pack (pp_lanes_from_runs with
+    window origin w_lo) plus kernel B over the window's cap-overflow
+    list, consensus on ``device``, decisions fetched as uint8.  Every
+    window has the same padded width w_pad, a multiple of TILE_W.
+
+    Windows run one after another, in position order, so the depth
+    total is one left-fold.  The JAX package's
+    POLYPOLISH_TPU_WINDOW_DEPTH (windows in flight) is accepted and
+    changes nothing here: a window's card work is about a millisecond
+    against tenths of a second of host fold and pack, so there is
+    nothing for a queue of windows to overlap.  Only the (8, n_unique)
+    columns at the window's sparse positions are fetched of its counts.
+    Counterpart of the JAX package's _polish_device_runs_windowed;
+    where that falls back (no pack), this raises."""
+    from polypolish_tpu_torch.models.polisher import LanesPolisher
+
+    seq_len = len(seq)
+    sp_pos, sp_vid, sp_cnt = runs_handle.sparse(name)
+    min_depth = thresholds[0]
+    w_pad = -(-_window_size() // TILE_W) * TILE_W
+    model = LanesPolisher(w_pad, device, R_SUB, TILE_W, timer=timer)
+    i32max = np.int32(2**31 - 1)
+
+    def pad_w(arr, fill, dtype):
+        # positions past the contig's end: low_depth, thresholds
+        # INT32_MAX, orig_id 0, and no events in the pack
+        a = np.full(w_pad, fill, dtype=dtype)
+        a[: arr.shape[0]] = arr
+        return torch.from_numpy(a).to(device)
+
+    tally = _WindowTally()
+    for w_lo in range(0, seq_len, w_pad):
+        w_hi = min(seq_len, w_lo + w_pad)
+        w_real = w_hi - w_lo
+        with timer.stage("fold"):
+            _, depth_w, (valid_w, invalid_w, low_w) = \
+                runs_handle.fold_window(name, w_lo, w_hi, thresholds,
+                                        want_counts=False)
+        with timer.stage("pack"):
+            pack = runs_handle.lanes(
+                name, model.r_sub, model.tile_w, num_positions=w_pad,
+                packed4=True, cap=True, w_lo=w_lo,
+            )
+        if pack is None:
+            raise RuntimeError(
+                f"the native lane packer returned no pack for {name} "
+                f"window [{w_lo}, {w_hi}) ({w_pad} positions): bad "
+                f"arguments or out of memory"
+            )
+        i0, i1 = np.searchsorted(sp_pos, [w_lo, w_hi])
+        try:
+            with timer.stage("upload"):
+                thr_args = (
+                    pad_w(valid_w, i32max, np.int32),
+                    pad_w(invalid_w, i32max, np.int32),
+                    pad_w(low_w, True, bool),
+                    pad_w(orig_id[w_lo:w_hi], 0, np.int32),
+                )
+            counts_t, adopted_u8, status_u8 = model.forward_pack(
+                pack.vb, pack.block_tile, *thr_args,
+                ov_pos=pack.ov_pos, ov_vid=pack.ov_vid,
+            )
+            # the fetch waits for the device, so the pack outlives every
+            # read of it
+            with timer.stage("fetch"):
+                status = status_u8[:w_real].cpu().numpy().astype(np.int32)
+                adopted = adopted_u8[:w_real].cpu().numpy().astype(np.int32)
+                cols = None
+                if i1 > i0:
+                    upos = np.unique(sp_pos[i0:i1] - w_lo)
+                    cols = counts_t[:, torch.from_numpy(upos).to(device)]
+                    cols = cols.cpu().numpy()
+        finally:
+            pack.close()
+        del counts_t, adopted_u8, status_u8
+        with timer.stage("finish"):
+            orig_w = orig_id[w_lo:w_hi]
+            # CHANGED adopts the dense id; every keep status keeps the
+            # (possibly sparse) original id
+            new_id_w = np.where(status == ST_CHANGED, adopted,
+                                orig_w).astype(np.int32)
+            if i1 > i0:
+                consensus_sparse_override(
+                    cols, sp_pos[i0:i1] - w_lo, sp_vid[i0:i1],
+                    sp_cnt[i0:i1], valid_w, invalid_w, depth_w, min_depth,
+                    orig_w, new_id_w, status, pregathered=True,
+                )
+            tally.add(w_lo, status, new_id_w, depth_w)
+    with timer.stage("finish"):
+        return tally.write(name, description, seq, vocab, out)
 
 
 def _pad_bucket(n: int, granularity_bits: int = 3, minimum: int = 4096) -> int:

@@ -407,3 +407,56 @@ def test_chunk_kernel_rejects_unordered_tiles(cuda_device):
         tvc.chunk_counts(cp, cp, ct, 3)
     _, plan = tvc.chunk_vote_launch(cp, cp, ct, 3)
     assert int(plan[3 + 1]) == 1
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_windowed_polish_on_gpu_matches_host(cuda_device, tmp_path,
+                                             monkeypatch, depth):
+    """The windowed device twin on the card (kernel A once per window,
+    the chunk kernel once per window with overflow events) against the
+    unwindowed host backend."""
+    fasta, sam_text = synth.make_polish_case(
+        seed=12, genome_len=20_000, n_reads=20_000, read_len=60, err=0.15,
+        multi_frac=0.5, n_draft_errors=40)
+    asm, sam = tmp_path / "a.fasta", tmp_path / "a.sam"
+    asm.write_text(synth.fasta_text(fasta))
+    sam.write_text(sam_text)
+
+    def run(backend):
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stderr(err):
+            polish(None, 0.2, 0.5, 10, 5, False, str(asm), [str(sam)],
+                   out=out, backend=backend, device=cuda_device)
+        return out.getvalue()
+
+    host = run("host")
+    monkeypatch.setenv("POLYPOLISH_TPU_WINDOW_MIN", "1")
+    monkeypatch.setenv("POLYPOLISH_TPU_WINDOW", "4096")
+    monkeypatch.setenv("POLYPOLISH_TPU_WINDOW_DEPTH", str(depth))
+    tvl.lanes_counts.launches.clear()
+    tvc.chunk_counts.launches = 0
+    assert run("device") == host
+    assert tvl.lanes_counts.launches == {"lanes_vote_packed4": 5}
+    assert 1 <= tvc.chunk_counts.launches <= 5
+    assert run("host") == host
+
+
+def test_pair_screen_step_gpu_matches_cpu(cuda_device):
+    from polypolish_tpu_torch.models.pairscreen import pair_screen_step
+
+    rng = np.random.default_rng(3)
+    n_align, m = 5000, 2_000_000
+    seg = np.sort(rng.integers(0, n_align + 1, m)).astype(np.int32)
+    starts = rng.integers(0, 2**31 - 1000, (2, m))
+    cols = [rng.integers(0, 3, m), rng.choice([0, 16, 256, 272], m),
+            starts[0], starts[0] + rng.integers(20, 500, m),
+            rng.integers(0, 3, m), rng.choice([0, 16, 256, 272], m),
+            starts[1], starts[1] + rng.integers(20, 500, m)]
+    cols = [c.astype(np.int32) for c in cols]
+    no_pair = rng.random(n_align) < 0.1
+    unique = rng.random(n_align) < 0.1
+    got = [pair_screen_step(*on(dev, seg, *cols), 100, 2**30, 0,
+                            *on(dev, no_pair, unique),
+                            num_alignments=n_align).cpu()
+           for dev in (cuda_device, "cpu")]
+    assert torch.equal(got[0], got[1])

@@ -251,11 +251,24 @@ def test_cli_fatal_error_exit_code(tmp_path):
 
 
 _NO_JAX_SCRIPT = r"""
-import io, sys
+import io, os, sys
+from polypolish_tpu_torch.pipeline import filtering
+from polypolish_tpu_torch.pipeline.full import polish_paired
 from polypolish_tpu_torch.pipeline.polish import polish
 for kwargs in (dict(), dict(kernel_variant="mxu"), dict(backend="xla")):
     polish(None, 0.2, 0.5, 10, 5, False, sys.argv[1], [sys.argv[2]],
            out=io.StringIO(), device="cpu", **kwargs)
+os.environ["POLYPOLISH_TPU_WINDOW_MIN"] = "1"
+os.environ["POLYPOLISH_TPU_WINDOW"] = "100"
+for backend in ("device", "host"):
+    polish(None, 0.2, 0.5, 10, 5, False, sys.argv[1], [sys.argv[2]],
+           out=io.StringIO(), device="cpu", backend=backend)
+filtering._DEVICE_GRID_THRESHOLD = 0
+work = sys.argv[5]
+filtering.filter_pairs(sys.argv[3], sys.argv[4], os.path.join(work, "1.sam"),
+                       os.path.join(work, "2.sam.gz"), device="cpu")
+polish_paired(sys.argv[6], sys.argv[3], sys.argv[4], out=io.StringIO(),
+              device="cpu")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "polypolish_tpu" or m.startswith("polypolish_tpu."))
@@ -263,11 +276,27 @@ print("BAD:" + ",".join(bad))
 """
 
 
-def test_port_imports_no_jax_at_run_time():
+def test_port_imports_no_jax_at_run_time(tmp_path):
+    """Every path the port has (polish on each backend, windowed or not;
+    filter through the device grid step and a .gz output; full)
+    runs without loading jax or polypolish_tpu."""
+    import numpy as np
+
+    import tests.synth as synth
+
+    paired = []
+    for i, text in enumerate(synth.make_filter_case(seed=3), 1):
+        paired.append(tmp_path / f"p{i}.sam")
+        paired[-1].write_text(text)
+    rng = np.random.default_rng(3)  # the filter case's genomes
+    asm = tmp_path / "paired.fasta"
+    asm.write_text(synth.fasta_text(
+        [(c, "", synth.rand_seq(rng, 5000)) for c in ("c1", "c2")]))
     proc = subprocess.run(
         [sys.executable, "-c", _NO_JAX_SCRIPT,
          os.path.join(GOLDEN, "indel_adopted.fasta"),
-         os.path.join(GOLDEN, "indel_adopted.sam")],
+         os.path.join(GOLDEN, "indel_adopted.sam"),
+         *map(str, paired), str(tmp_path), str(asm)],
         capture_output=True, text=True, env=_env(), cwd=REPO, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
@@ -303,9 +332,11 @@ def test_port_sources_import_no_jax():
             else:
                 continue
             offenders += [f"{path}: {n}" for n in names if _forbidden(n)]
-    assert len(scanned) > 15
+    assert len(scanned) > 20
     for module in ("ops/vote.py", "ops/vote_lanes.py", "ops/vote_chunks.py",
-                   "models/polisher.py", "pipeline/polish.py",
+                   "ops/pairfilter.py", "models/polisher.py",
+                   "models/pairscreen.py", "pipeline/polish.py",
+                   "pipeline/filtering.py", "pipeline/full.py",
                    "native/runs.py", "cli.py"):
         assert os.path.join("polypolish_tpu_torch", module) in scanned
     assert "chip_smoke.py" in scanned
