@@ -77,6 +77,28 @@ Phases, in order; any failure raises and exits non-zero:
    run on every file whose pair grid reaches 1 M entries, and repeats16
    must reach it in both files.  Then ``full`` on the E. coli workload
    against ``filter`` followed by a host-backend ``polish``.
+10. The event-stream path of the pure-Python reader.  At full size: the
+   E. coli contig's event stream (ParsedRuns.events(), 226 M events)
+   filled into its ContigVotes, then polish_sequences with no runs
+   handle on backend "device" (PolisherModel.pack, then the chunk
+   kernel on the whole pileup): FASTA and stderr equal to phase 4's
+   host run, one chunk-kernel launch and no lanes launch; stage times
+   and the host's peak RSS.  At a cut genome (100 kb of the same
+   shape): ``polish --pure-python`` with --backend host, device and
+   xla, from the two SAMs and from the same records as BGZF BAM
+   (written here), six FASTAs byte-identical to the native host run.
+11. ``batch --backend device`` over a six-job manifest (ecoli50x,
+   repeats and repeats16, each twice) with --workers 1 and 3: every
+   output equal to its genome's host FASTA, kernel A launched six
+   times and the chunk kernel once per job with cap-overflow events;
+   then --resume, which skips all six and launches nothing.
+12. ``--backend auto`` and ``--pod-shards``: the measured link, the
+   cost model's prediction for the E. coli SAM bytes, the calibration
+   constants as this run measures them (medians of three warm host and
+   lanes runs on E. coli); ``polish`` with no --backend
+   takes the predicted backend and equals the host FASTA;
+   ``polish --pod-shards 4`` on E. coli and repeats equals the host run
+   (FASTA, --debug TSV, stderr but for the "Pod mode:" line).
 
 Then the ``kernels`` JSON line and, last, the device JSON line.
 
@@ -95,6 +117,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -326,6 +349,7 @@ def main() -> int:
               f"{n_tiles} tiles, {int(want.sum())} votes")
         return got
 
+    pack_bytes = e_vb.numel() * e_vb.element_size()
     e_counts = check_lanes("E. coli pack", e_vb, e_bt, e_ntiles, R_SUB,
                            TILE_W)
     for body, vb in (("packed", b_vb), ("cmp", b_vb.view(torch.int8)),
@@ -725,10 +749,16 @@ def main() -> int:
 
     # -- phases 7-9: windowed polish, default windows, filter and full -
     ctx = dict(dev=dev, zero_counts=zero_counts, read_counts=read_counts,
-               lanes=LANES, errs=errs)
+               lanes=LANES, errs=errs, check_lanes=check_lanes,
+               check_chunks=check_chunks)
     phase_windowed_ecoli(ctx, cases["ecoli50x"], host_runs["ecoli50x"])
     phase_default_windows(ctx)
-    phase_filter_full(ctx, cases)
+    cases["repeats16"] = phase_filter_full(ctx, cases)
+
+    # -- phases 10-12: event stream, batch, auto and pod shards --------
+    phase_event_path(ctx, cases["ecoli50x"], host_runs["ecoli50x"])
+    phase_batch(ctx, cases, host_runs)
+    phase_auto_pod(ctx, cases, host_runs, pack_bytes)
 
     def entry(name, source, replaces, label):
         ms, plain, lib, _, _ = timed[label]
@@ -1128,6 +1158,436 @@ def phase_filter_full(ctx, cases):
     for p in filtered:
         os.remove(p)
     print(f"phase 9 (filter and full): {time.monotonic() - t0:.1f} s")
+    return cases["repeats16"]
+
+
+# -- phases 10-12 -----------------------------------------------------
+
+# the cut genome of the pure-Python runs: 100 kb, because the six runs
+# at 200 kb (10-14 s each in the Python reader) took 72 s of the script
+CUT_LEN = 100_000
+CAL_REPS = 3  # warm host and lanes runs behind the cost model's constants
+SEQ16 = "=ACMGRSVTWYHKDBN"
+CIGAR_OPS = "MIDNSHP=X"
+
+
+def sam_to_bgzf_bam(sam_path: str, bam_path: str) -> None:
+    """Write the records of a SAM file (the workload's: @SQ header,
+    integer and string tags) as a BGZF-compressed BAM (SAM spec section
+    4), for the port's own BAM reader to read back."""
+    import struct
+    import zlib
+
+    code = bytes(SEQ16.index(c) if c in SEQ16 else 15 for c in
+                 (chr(i).upper() for i in range(256)))
+    header, refs, body = [], {}, bytearray()
+    with open(sam_path) as f:
+        for line in f:
+            line = line.rstrip("\n")
+            if line.startswith("@"):
+                header.append(line)
+                if line.startswith("@SQ"):
+                    fields = dict(x.split(":", 1) for x in line.split("\t")[1:])
+                    refs[fields["SN"]] = (len(refs), int(fields["LN"]))
+                continue
+            (qname, flag, rname, pos, mapq, cigar, rnext, pnext, tlen, seq,
+             qual, *tags) = line.split("\t")
+            ref_id = refs[rname][0] if rname in refs else -1
+            next_ref = (ref_id if rnext == "=" else
+                        refs[rnext][0] if rnext in refs else -1)
+            ops = [(int(n) << 4) | CIGAR_OPS.index(op)
+                   for n, op in re.findall(r"(\d+)(\D)", cigar)]
+            l_seq = 0 if seq == "*" else len(seq)
+            nib = seq.encode("latin-1").translate(code) if l_seq else b""
+            if l_seq % 2:
+                nib += b"\x00"
+            packed = bytes(a << 4 | b for a, b in zip(nib[::2], nib[1::2]))
+            qb = (b"\xff" * l_seq if qual == "*" else
+                  bytes(ord(c) - 33 for c in qual)) if l_seq else b""
+            tb = bytearray()
+            for t in tags:
+                tag, typ, val = t.split(":", 2)
+                if typ == "i":
+                    tb += tag.encode() + b"i" + struct.pack("<i", int(val))
+                else:
+                    tb += tag.encode() + typ.encode() + val.encode() + b"\0"
+            name_b = qname.encode() + b"\0"
+            rec = struct.pack("<iiBBHHHIiii", ref_id, int(pos) - 1,
+                              len(name_b), int(mapq), 0, len(ops), int(flag),
+                              l_seq, next_ref, int(pnext) - 1, int(tlen))
+            rec += name_b + b"".join(struct.pack("<I", o) for o in ops)
+            rec += packed + qb + bytes(tb)
+            body += struct.pack("<I", len(rec)) + rec
+    text = ("\n".join(header) + "\n").encode()
+    head = bytearray(b"BAM\x01" + struct.pack("<I", len(text)) + text
+                     + struct.pack("<i", len(refs)))
+    for name, (_, length) in refs.items():
+        nb = name.encode() + b"\0"
+        head += struct.pack("<I", len(nb)) + nb + struct.pack("<i", length)
+    payload = bytes(head + body)
+    with open(bam_path, "wb") as out:
+        for off in range(0, len(payload), 60000):
+            chunk = payload[off:off + 60000]
+            co = zlib.compressobj(6, zlib.DEFLATED, -15)
+            cdata = co.compress(chunk) + co.flush()
+            out.write(b"\x1f\x8b\x08\x04\x00\x00\x00\x00\x00\xff"
+                      + struct.pack("<H", 6) + b"BC"
+                      + struct.pack("<HH", 2, len(cdata) + 25) + cdata
+                      + struct.pack("<II", zlib.crc32(chunk), len(chunk)))
+        out.write(bytes.fromhex(
+            "1f8b08040000000000ff0600424302001b0003000000000000000000"))
+
+
+def cli_run(ctx, argv):
+    """(stdout, stderr with the clock masked, wall s, launches) of one
+    in-process ``python -m polypolish_tpu_torch`` command, the launch
+    counters zeroed just before it."""
+    from polypolish_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    ctx["zero_counts"]()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    total = time.monotonic() - t0
+    counts = ctx["read_counts"]()
+    check(rc == 0, f"{' '.join(argv)}: exit code {rc}\n{err.getvalue()}")
+    return out.getvalue(), _CLOCK.sub("", err.getvalue()), total, counts
+
+
+def rss_kb(field: str) -> int:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith(field + ":"):
+                return int(line.split()[1])
+    raise RuntimeError(f"no {field} in /proc/self/status")
+
+
+class RssPeak:
+    """Peak VmRSS of this process while the block runs, sampled every
+    5 ms on a thread (the kernel's own peak, VmHWM, can be restarted
+    for one phase only where /proc/self/clear_refs is writable)."""
+
+    def __enter__(self):
+        self.start = self.peak = rss_kb("VmRSS")
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, rss_kb("VmRSS"))
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, rss_kb("VmRSS"))
+        return False
+
+
+def contig_len(fasta: str) -> int:
+    with open(fasta) as f:
+        f.readline()
+        return len(f.readline().strip())
+
+
+def no_launches(counts):
+    return sum(counts.values()) == 0
+
+
+@contextlib.contextmanager
+def capture_calls(**wrappers):
+    """Record the arguments of every call the model makes to the kernel
+    wrappers named (attributes of models/polisher.py, which calls them)
+    while the block runs; each call goes through unchanged.  Yields
+    {name: [args, ...]}."""
+    from polypolish_tpu_torch.models import polisher
+
+    calls = {name: [] for name in wrappers}
+    originals = {name: getattr(polisher, name) for name in wrappers}
+
+    def recorder(name):
+        fn = originals[name]
+
+        def call(*args, **kwargs):
+            check(not kwargs, f"{name} called with keywords {kwargs}")
+            # copies: a caller may free what a tensor aliases (a CPU
+            # tensor over a native pack) once the call returns
+            calls[name].append(tuple(a.clone() if torch.is_tensor(a) else a
+                                     for a in args))
+            return fn(*args)
+
+        return call
+
+    for name in wrappers:
+        setattr(polisher, name, recorder(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in originals.items():
+            setattr(polisher, name, fn)
+
+
+def check_captured(ctx, label, calls):
+    """Each kernel call a main path made, run again through its wrapper
+    and held bitwise against its plain version on the same tensors."""
+    for i, args in enumerate(calls.get("lanes_counts", ())):
+        ctx["check_lanes"](f"{label}, kernel A call {i}", *args)
+    for i, args in enumerate(calls.get("chunk_counts", ())):
+        ctx["check_chunks"](f"{label}, chunk kernel call {i}", *args)
+
+
+def phase_event_path(ctx, case, host_ref):
+    """Phase 10: the pure-Python reader's event-stream path, at full
+    E. coli size through polish_sequences and at a cut genome through
+    the CLI (SAM and BAM)."""
+    import importlib
+
+    import workload
+    from polypolish_tpu_torch.utils.profiling import StageTimer
+    from polypolish_tpu_torch.vocab import Vocab
+
+    # the pipeline package exports polish(), which hides the module
+    pp = importlib.import_module("polypolish_tpu_torch.pipeline.polish")
+    t0 = time.monotonic()
+    dev = ctx["dev"]
+    fasta, sams = case
+    timer = StageTimer(sync_device=dev)
+    out, err = io.StringIO(), io.StringIO()
+    ctx["zero_counts"]()
+    t1 = time.monotonic()
+    with RssPeak() as rss, contextlib.redirect_stderr(err):
+        start = time.monotonic()
+        pp.starting_message(None, 0.2, 0.5, 10, 5, False, fasta, sams)
+        seq_names, votes = pp.load_assembly(fasta)
+        vocab = Vocab()
+        with timer.stage("parse"):
+            pr = pp._load_alignments_runs(10, False, sams, votes, vocab, None)
+        try:
+            with timer.stage("events"):
+                for name, _ in seq_names:
+                    votes[name].extend_events(*pr.events(name))
+        finally:
+            pr.close()
+        n_events = sum(v.num_events for v in votes.values())
+        with capture_calls(chunk_counts=True) as calls:
+            lengths = pp.polish_sequences(
+                None, 0.2, 0.5, 5, seq_names, votes, vocab, out, "device",
+                None, dev, timer, "lanes")
+        pp.finished_message(None, lengths, start)
+    total = time.monotonic() - t1
+    counts = ctx["read_counts"]()
+    del votes
+    check(out.getvalue() == host_ref[0],
+          "event path (device): FASTA != host FASTA")
+    check(_CLOCK.sub("", err.getvalue()) == host_ref[1],
+          "event path (device): stderr != host stderr")
+    want = {k: 0 for k in ctx["lanes"]}
+    want["chunk_vote"] = 1
+    check(counts == want, f"event path launches {counts}, want {want}")
+    print(f"event path ecoli50x (device): total {total:.3f} s | "
+          f"{fmt_stages(timer.seconds)} | {n_events} events | launches "
+          f"{counts} | host RSS {rss.start * 1024} B before, peak "
+          f"{rss.peak * 1024} B ({(rss.peak - rss.start) * 1024} B above)")
+    print("event path ecoli50x: FASTA and stderr == host run of phase 4")
+    # the int32 chunks (widened on the card from pack()'s int16/int8) of
+    # the whole pileup, as the path fed them to the kernel
+    check_captured(ctx, "event path ecoli50x", calls)
+    del calls
+
+    # the cut genome through the CLI, from SAM and from BAM
+    t1 = time.monotonic()
+    fasta_t, sams_t, info = workload.make_paired_case(seed=0,
+                                                      genome_len=CUT_LEN)
+    cut_fasta, cut_sams = workload.write_case(DATA_DIR, "cut", fasta_t,
+                                              sams_t)
+    del fasta_t, sams_t
+    bams = [p[:-4] + ".bam" for p in cut_sams]
+    for s_path, b_path in zip(cut_sams, bams):
+        sam_to_bgzf_bam(s_path, b_path)
+    print(f"cut genome: {CUT_LEN} bp, {info['n_alignments']} alignments, "
+          f"SAM {sum(map(os.path.getsize, cut_sams))} B, BAM "
+          f"{sum(map(os.path.getsize, bams))} B, made in "
+          f"{time.monotonic() - t1:.1f} s")
+    native = polish_run(ctx, cut_fasta, cut_sams, backend="host")[0]
+    for label, inputs in (("SAM", cut_sams), ("BAM", bams)):
+        errs_by_backend = {}
+        for backend in ("host", "device", "xla"):
+            with capture_calls(chunk_counts=True) as calls:
+                fasta_out, err_text, total, counts = cli_run(
+                    ctx, ["polish", "--pure-python", "--backend", backend,
+                          cut_fasta, *inputs])
+            check(fasta_out == native,
+                  f"--pure-python {label} {backend}: FASTA != native host")
+            want = {k: 0 for k in ctx["lanes"]}
+            want["chunk_vote"] = int(backend == "device")
+            check(counts == want, f"--pure-python {label} {backend}: "
+                                  f"launches {counts}, want {want}")
+            errs_by_backend[backend] = err_text
+            print(f"--pure-python {label} --backend {backend}: total "
+                  f"{total:.3f} s | launches {counts}")
+            check_captured(ctx, f"--pure-python {label} {backend}", calls)
+        check(len(set(errs_by_backend.values())) == 1,
+              f"--pure-python {label}: stderr differs between backends")
+    print(f"--pure-python: six FASTAs (SAM and BAM x host, device, xla) == "
+          f"native host run ({len(native)} bytes)")
+    for p in cut_sams + bams + [cut_fasta]:
+        os.remove(p)
+    print(f"phase 10 (event-stream path): {time.monotonic() - t0:.1f} s")
+
+
+def phase_batch(ctx, cases, host_runs):
+    """Phase 11: batch --backend device over six jobs with one and three
+    workers, then --resume."""
+    from polypolish_tpu_torch.pipeline.polish import _pad_bucket
+
+    t0 = time.monotonic()
+    genomes = ("ecoli50x", "repeats", "repeats16")
+    host = {g: host_runs[g][0] for g in genomes if g in host_runs}
+    host["repeats16"] = polish_run(ctx, *cases["repeats16"],
+                                   backend="host")[0]
+    n_ov = {}
+    for g in genomes:
+        fasta, sams = cases[g]
+        n_ov[g] = window_plan(fasta, sams, _pad_bucket(contig_len(fasta)))[1]
+    jobs = [(g, os.path.join(DATA_DIR, f"batch_{g}_{k}.fasta"))
+            for g in genomes for k in (1, 2)]
+    manifest = os.path.join(DATA_DIR, "batch.tsv")
+    with open(manifest, "w") as f:
+        for g, out_path in jobs:
+            fasta, sams = cases[g]
+            f.write(f"{fasta}\t{out_path}\t{','.join(sams)}\n")
+    want = {k: 0 for k in ctx["lanes"]}
+    want["lanes_vote_packed4"] = len(jobs)
+    want["chunk_vote"] = sum(n_ov[g] for g, _ in jobs)
+    walls = {}
+    for workers in (1, 3):
+        # the first run's kernel inputs are held against plain below
+        with (capture_calls(lanes_counts=True, chunk_counts=True)
+              if workers == 1 else contextlib.nullcontext({})) as calls:
+            _, err, total, counts = cli_run(
+                ctx, ["batch", "--backend", "device", "--workers",
+                      str(workers), manifest])
+        check(f"Genomes polished: {len(jobs)}/{len(jobs)}" in err,
+              f"batch --workers {workers}: {err}")
+        check(counts == want,
+              f"batch --workers {workers}: launches {counts}, want {want}")
+        for g, out_path in jobs:
+            with open(out_path) as f:
+                check(f.read() == host[g],
+                      f"batch --workers {workers}: {out_path} != host FASTA")
+        walls[workers] = total
+        print(f"batch --backend device --workers {workers}: total "
+              f"{total:.3f} s for {len(jobs)} genomes | launches {counts}")
+        # every lane pack and overflow list of the six jobs (ecoli50x,
+        # repeats and repeats16, each twice), kernel against plain
+        if calls:
+            check(len(calls["lanes_counts"]) == len(jobs),
+                  f"batch captured {len(calls['lanes_counts'])} lane packs")
+            check_captured(ctx, f"batch --workers {workers}", calls)
+        del calls
+    _, err, total, counts = cli_run(
+        ctx, ["batch", "--backend", "device", "--resume", manifest])
+    check(f"{len(jobs)} resumed/skipped" in err and no_launches(counts),
+          f"batch --resume: launches {counts}\n{err}")
+    print(f"batch --resume: total {total:.3f} s, all {len(jobs)} skipped, "
+          f"launches {counts}")
+    print(f"batch: every output == its genome's host FASTA; workers 3 / "
+          f"workers 1 wall {walls[3] / walls[1]:.3f}")
+    for _, out_path in jobs:
+        os.remove(out_path)
+    print(f"phase 11 (batch): {time.monotonic() - t0:.1f} s")
+
+
+def phase_auto_pod(ctx, cases, host_runs, pack_bytes):
+    """Phase 12: the transport cost model and --backend auto, then
+    --pod-shards 4 against the host backend."""
+    from polypolish_tpu_torch.utils import transport
+    from polypolish_tpu_torch.utils.profiling import StageTimer
+
+    t0 = time.monotonic()
+    fasta, sams = cases["ecoli50x"]
+    sam_bytes = sum(os.path.getsize(p) for p in sams)
+    bw, lat = transport.measure_link(refresh=True)
+    choice, details = transport.predict_backend(sam_bytes)
+    print(f"link: {bw:.6g} B/s, latency {lat:.6g} s (pageable 4 MiB and "
+          f"4 KiB copies)")
+    print(f"predict_backend({sam_bytes} B of SAM): {details} -> {choice}")
+    # the model's constants as this run measures them: medians of warm
+    # host and lanes runs on E. coli, taken in turn
+    hosts, lanes_totals, halves, cards = [], [], [], []
+    for _ in range(CAL_REPS):
+        fasta_out, _, total, _, _ = polish_run(ctx, fasta, sams,
+                                               backend="host")
+        check(fasta_out == host_runs["ecoli50x"][0], "calibration host run")
+        hosts.append(total)
+        fasta_out, _, total, _, timer = polish_run(
+            ctx, fasta, sams, StageTimer(sync_device=ctx["dev"]),
+            backend="device")
+        lanes_totals.append(total)
+        check(fasta_out == host_runs["ecoli50x"][0], "calibration lanes run")
+        st = timer.seconds
+        halves.append(st["parse"] + st["fold"] + st["pack"])
+        cards.append(sum(st.get(k, 0.0) for k in
+                         ("kernel_a", "kernel_b", "consensus", "fetch")))
+    print(f"calibration runs: host totals {[round(x, 3) for x in hosts]}, "
+          f"lanes totals {[round(x, 3) for x in lanes_totals]}, "
+          f"lanes parse+fold+pack {[round(x, 3) for x in halves]}, lanes "
+          f"kernel_a+kernel_b+consensus+fetch {[round(x, 4) for x in cards]}")
+    host_total, lanes_total, host_half, card = (
+        float(np.median(x)) for x in (hosts, lanes_totals, halves, cards))
+    # KERNEL_EPS_S is what the lanes path spends beyond the model's other
+    # terms (the card's work, the threshold upload, finish, the syncs),
+    # so that the model gives back both measured totals
+    up_frac = pack_bytes / sam_bytes
+    eps = (lanes_total - host_half - sam_bytes * up_frac / bw
+           - transport.N_DISPATCH * lat)
+    rate, speedup = sam_bytes / host_total, host_total / host_half
+    slope = (1 - 1 / speedup) / rate - up_frac / bw
+    cross = f"{eps / slope:.4g} B" if slope > 0 else "none"
+    print(f"calibration from this run: HOST_ENGINE_BYTES_PER_S {rate:.6g} "
+          f"(module {transport.HOST_ENGINE_BYTES_PER_S:g}), PARSE_SPEEDUP "
+          f"{speedup:.4f} (module {transport.PARSE_SPEEDUP:g}), "
+          f"UPLOAD_FRACTION {up_frac:.4f} (module "
+          f"{transport.UPLOAD_FRACTION:g}), KERNEL_EPS_S {eps:.4f} (module "
+          f"{transport.KERNEL_EPS_S:g}; of it kernel_a+kernel_b+consensus+"
+          f"fetch {card:.4f}), N_DISPATCH {transport.N_DISPATCH}; host "
+          f"{host_total:.3f} s, lanes {lanes_total:.3f} s, lanes "
+          f"parse+fold+pack {host_half:.3f} s, pack {pack_bytes} B; with "
+          f"these constants auto takes the device path from {cross} of SAM")
+
+    out, err, total, counts = cli_run(ctx, ["polish", fasta, *sams])
+    check(out == host_runs["ecoli50x"][0], "auto: FASTA != host FASTA")
+    if choice == "host":
+        check(no_launches(counts) and "note: GPU attached" in err,
+              f"auto predicted host but launched {counts}")
+    else:
+        check(counts["lanes_vote_packed4"] == 1,
+              f"auto predicted device but launched {counts}")
+    print(f"polish with no --backend: took {choice} as predicted, total "
+          f"{total:.3f} s, launches {counts}; FASTA == host")
+
+    for case in ("ecoli50x", "repeats"):
+        fasta, sams = cases[case]
+        dbg = os.path.join(DATA_DIR, f"{case}_debug.tsv")
+        runs = {}
+        for label, flags in (("host", ["--backend", "host"]),
+                             ("pod", ["--pod-shards", "4"])):
+            out, err, total, counts = cli_run(
+                ctx, ["polish", *flags, "--debug", dbg, fasta, *sams])
+            check(no_launches(counts), f"{case} {label}: launches {counts}")
+            runs[label] = (out, file_digest(dbg),
+                           re.sub(r"Pod mode: [^\n]*\n\n", "", err))
+            print(f"polish {' '.join(flags)} --debug {case}: total "
+                  f"{total:.3f} s, debug TSV {os.path.getsize(dbg)} B")
+            os.remove(dbg)
+        check(runs["pod"] == runs["host"],
+              f"{case}: --pod-shards 4 != host (FASTA, TSV or stderr)")
+        print(f"--pod-shards 4 {case}: FASTA, --debug TSV and stderr (but "
+              f"the Pod mode line) == host")
+    print(f"phase 12 (auto and pod shards): {time.monotonic() - t0:.1f} s")
 
 
 if __name__ == "__main__":

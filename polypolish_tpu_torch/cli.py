@@ -1,30 +1,41 @@
 """Command-line interface (counterpart of polypolish_tpu/cli.py;
 reference: main.rs:23-126).
 
-The port carries the ``polish``, ``filter`` and ``full`` subcommands:
+The port carries the ``polish``, ``filter``, ``full`` and ``batch``
+subcommands:
 
   python -m polypolish_tpu_torch polish [--debug FILE] [-i 0.2] [-v 0.5]
       [-m 10] [-d 5] [--careful] [--threads N]
-      [--backend device|host|xla] [--kernel-variant lanes|mxu]
-      [--device cuda|cpu] assembly sam [sam ...]
+      [--backend auto|device|host|xla] [--kernel-variant lanes|mxu]
+      [--pure-python] [--pod-shards N] [--device cuda|cpu]
+      assembly sam [sam ...]
   python -m polypolish_tpu_torch filter --in1 .. --in2 .. --out1 ..
       --out2 .. [--orientation auto] [--low 0.1] [--high 99.9]
       [--device cuda|cpu]
   python -m polypolish_tpu_torch full --in1 .. --in2 .. [filter and
       polish options] [--keep-filtered DIR] assembly
+  python -m polypolish_tpu_torch batch [polish options] [--workers N]
+      [--resume] manifest
 
-``--backend device`` (default) counts votes with the port's CUDA kernels
-on ``--device`` (default cuda; cpu runs their plain PyTorch versions):
-the lanes vote kernel (``--kernel-variant lanes``, default) or the chunk
-vote kernel (``mxu``); ``--backend xla`` counts the chunk layout with a
-torch scatter-add on ``--device``; ``--backend host`` runs the C++ fold
-and consensus.  ``filter`` runs its pair grids of 1 M entries or more as
-torch ops on ``--device``; ``full`` runs ``filter`` and then ``polish``.
+``--backend auto`` (default) takes the backend that the cost model of
+utils/transport.py predicts fastest for the SAM bytes at hand ("host"
+when there is no GPU or ``--device cpu``).  ``--backend device`` counts
+votes with the port's CUDA kernels on ``--device`` (default cuda; cpu
+runs their plain PyTorch versions): the lanes vote kernel
+(``--kernel-variant lanes``, default) or the chunk vote kernel
+(``mxu``); with ``--pure-python`` the chunk vote kernel counts the
+Python reader's event stream.  ``--backend xla`` counts with a torch
+scatter-add on ``--device``; ``--backend host`` folds on the host.
+``--pod-shards N`` shards the SAM ingest over N byte ranges and folds
+on the host.  ``filter`` runs its pair grids of 1 M entries or more as
+torch ops on ``--device``; ``full`` runs ``filter`` and then ``polish``;
+``batch`` polishes the genomes of a manifest on a thread pool.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from typing import List, Optional
 
@@ -59,6 +70,7 @@ def build_parser() -> argparse.ArgumentParser:
         "polish", help="polish a long-read assembly using short-read alignments"
     )
     _add_polish_options(p)
+    _add_pod_option(p)
     _add_device_option(p)
     p.add_argument("assembly", help="Assembly to polish (one file in FASTA format)")
     p.add_argument(
@@ -75,11 +87,33 @@ def build_parser() -> argparse.ArgumentParser:
     _add_filter_options(r)
     _add_polish_options(r)
     _add_device_option(r)
+    _add_pod_option(r)
     r.add_argument(
         "--keep-filtered", default=None,
         help="Directory to keep the intermediate filtered SAMs",
     )
     r.add_argument("assembly", help="Assembly to polish (FASTA)")
+
+    b = sub.add_parser(
+        "batch",
+        help="polish many genomes from a manifest (no reference "
+        "counterpart)",
+    )
+    b.add_argument(
+        "manifest",
+        help="TSV manifest: assembly<TAB>output<TAB>sam1[,sam2...] per line",
+    )
+    _add_polish_options(b, debug=False)
+    _add_device_option(b)
+    b.add_argument(
+        "--workers", type=int, default=None,
+        help="Genomes polished at once (default: min(8, cores, jobs))",
+    )
+    b.add_argument(
+        "--resume", action="store_true",
+        help="Skip jobs whose output already exists and is newer than "
+        "its inputs",
+    )
     return parser
 
 
@@ -96,11 +130,14 @@ def _add_filter_options(f: argparse.ArgumentParser) -> None:
     )
 
 
-def _add_polish_options(p: argparse.ArgumentParser) -> None:
-    p.add_argument(
-        "--debug", default=None,
-        help="Optional file to store per-base information for debugging purposes",
-    )
+def _add_polish_options(p: argparse.ArgumentParser,
+                        debug: bool = True) -> None:
+    if debug:
+        p.add_argument(
+            "--debug", default=None,
+            help="Optional file to store per-base information for "
+            "debugging purposes",
+        )
     p.add_argument(
         "-i", "--fraction_invalid", type=float, default=0.2,
         help="A base must make up less than this fraction of the read depth "
@@ -127,19 +164,35 @@ def _add_polish_options(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument(
         "--threads", type=int, default=None,
-        help="Native SAM parser threads (default: all cores, max 16; "
-        "output is bit-identical for any value)",
+        help="Native SAM parser threads (default: all cores, max 16; in "
+        "batch 1 per genome when several are in flight; output is "
+        "bit-identical for any value)",
     )
     p.add_argument(
-        "--backend", default="device", choices=("device", "host", "xla"),
-        help="Vote/consensus backend: 'device' (the CUDA kernels, "
-        "default), 'host' (the C++ fold) or 'xla' (a torch scatter-add "
+        "--backend", default="auto",
+        choices=("auto", "device", "host", "xla"),
+        help="Vote/consensus backend: 'auto' (default: the one the "
+        "transport cost model predicts fastest), 'device' (the CUDA "
+        "kernels), 'host' (the host fold) or 'xla' (a torch scatter-add "
         "on --device)",
     )
     p.add_argument(
         "--kernel-variant", default="lanes", choices=("lanes", "mxu"),
         help="Vote kernel of --backend device: 'lanes' (the lanes vote "
         "kernel, default) or 'mxu' (the chunk vote kernel)",
+    )
+    p.add_argument(
+        "--pure-python", action="store_true",
+        help="Read the SAM files with the pure-Python reader instead of "
+        "the native (C++) engine",
+    )
+
+
+def _add_pod_option(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
+        "--pod-shards", type=int, default=0,
+        help="Shard the SAM ingest over N byte-range shards and fold on "
+        "the host (output is bit-identical to unsharded)",
     )
 
 
@@ -151,6 +204,52 @@ def _add_device_option(p: argparse.ArgumentParser) -> None:
     )
 
 
+def _resolve_backend(requested: str, sam_paths=None, mean_job_sams=None,
+                     device="cuda") -> str:
+    """auto = the backend that the cost model of utils/transport.py
+    predicts fastest for this workload's SAM bytes on the measured link
+    (the JAX package's _resolve_backend; its "pallas" is "device").
+    Prints a note when a GPU is in use but the device path is predicted
+    slower.
+
+    mean_job_sams: batch mode, a sample of per-job SAM path lists; the
+    model runs on the mean job size (the prediction applies per
+    genome).  Only a missing GPU or ``device`` cpu resolves to host
+    without a prediction; a failing link probe raises."""
+    if requested != "auto":
+        return requested
+    from polypolish_tpu_torch.utils.transport import predict_backend
+
+    def _size(paths):
+        total = 0
+        for p in paths or []:
+            try:
+                total += os.path.getsize(p)
+            except OSError:
+                pass
+        return total
+
+    if mean_job_sams:
+        sizes = [_size(job) for job in mean_job_sams]
+        sizes = [s for s in sizes if s > 0]
+        sam_bytes = int(sum(sizes) / len(sizes)) if sizes else 0
+    else:
+        sam_bytes = _size(sam_paths)
+    if sam_bytes <= 0:
+        sam_bytes = 500 << 20  # unknown workload: E. coli scale
+    choice, details = predict_backend(sam_bytes, device=device)
+    if choice == "host" and "predicted_device_s" in details:
+        print(
+            "note: GPU attached but the device path is predicted "
+            f"slower on this link for this workload "
+            f"(device ~{details['predicted_device_s']}s vs host "
+            f"~{details['predicted_host_s']}s); using the host "
+            "backend (--backend device to force the device path)",
+            file=sys.stderr,
+        )
+    return choice
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     if argv is None:
         argv = sys.argv[1:]
@@ -159,6 +258,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         parser.print_help(sys.stderr)
         return 2
     args = parser.parse_args(argv)
+    from polypolish_tpu_torch.utils.malloc_tuning import tune_malloc
+
+    tune_malloc()
     try:
         if args.command == "filter":
             from polypolish_tpu_torch.pipeline.filtering import filter_pairs
@@ -167,6 +269,19 @@ def main(argv: Optional[List[str]] = None) -> int:
                 args.in1, args.in2, args.out1, args.out2,
                 args.orientation, args.low, args.high, device=args.device,
             )
+        elif args.command == "polish" and args.pod_shards > 1:
+            from polypolish_tpu_torch.pipeline.pod import (
+                polish_pod,
+                refuse_or_note,
+            )
+
+            refuse_or_note(not args.pure_python, args.backend)
+            polish_pod(
+                args.debug, args.fraction_invalid, args.fraction_valid,
+                args.max_errors, args.min_depth, args.careful,
+                args.assembly, args.sam, args.pod_shards,
+                n_threads=args.threads,
+            )
         elif args.command == "polish":
             from polypolish_tpu_torch.pipeline.polish import polish
 
@@ -174,9 +289,36 @@ def main(argv: Optional[List[str]] = None) -> int:
                 args.debug, args.fraction_invalid, args.fraction_valid,
                 args.max_errors, args.min_depth, args.careful,
                 args.assembly, args.sam,
-                backend=args.backend, n_threads=args.threads,
+                backend=_resolve_backend(args.backend, args.sam,
+                                         device=args.device),
+                n_threads=args.threads, device=args.device,
+                kernel_variant=args.kernel_variant,
+                use_native=not args.pure_python,
+            )
+        elif args.command == "batch":
+            from polypolish_tpu_torch.pipeline.batch import (
+                parse_manifest,
+                polish_batch,
+            )
+
+            jobs = parse_manifest(args.manifest)
+            results = polish_batch(
+                jobs,
+                fraction_invalid=args.fraction_invalid,
+                fraction_valid=args.fraction_valid,
+                max_errors=args.max_errors, min_depth=args.min_depth,
+                careful=args.careful,
+                # the prediction applies per genome: model the mean job
+                # over up to 20 manifest entries
+                backend=_resolve_backend(
+                    args.backend, mean_job_sams=[j[2] for j in jobs[:20]],
+                    device=args.device),
+                use_native=not args.pure_python, workers=args.workers,
+                resume=args.resume, n_threads=args.threads,
                 device=args.device, kernel_variant=args.kernel_variant,
             )
+            if any("error" in r for r in results):
+                return 1
         else:
             from polypolish_tpu_torch.pipeline.full import polish_paired
 
@@ -186,8 +328,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                 debug=args.debug, fraction_invalid=args.fraction_invalid,
                 fraction_valid=args.fraction_valid,
                 max_errors=args.max_errors, min_depth=args.min_depth,
-                careful=args.careful, backend=args.backend,
-                n_threads=args.threads, keep_filtered=args.keep_filtered,
+                careful=args.careful,
+                backend=_resolve_backend(args.backend, [args.in1, args.in2],
+                                         device=args.device),
+                use_native=not args.pure_python,
+                n_threads=args.threads, pod_shards=args.pod_shards,
+                keep_filtered=args.keep_filtered,
                 kernel_variant=args.kernel_variant, device=args.device,
             )
     except PolypolishError as e:

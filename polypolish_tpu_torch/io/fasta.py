@@ -105,6 +105,25 @@ def _check_load_fasta(
         quit_with_error(f'"{filename}" has a duplicated name')
 
 
+def open_text_auto(filename: str | os.PathLike, mode: str = "rt") -> IO[str]:
+    """Open a text file, transparently decompressing gzip (sniffed from
+    the magic bytes for reads; chosen by a .gz suffix for writes).
+
+    Extension over the reference, which supports gzip only for FASTA.
+    """
+    if "r" in mode:
+        # tolerant sniff: short files are simply not gzipped (unlike the
+        # FASTA loader, which treats <2 bytes as fatal per the reference)
+        with open(filename, "rb") as f:
+            head = f.read(2)
+        if len(head) == 2 and head[0] == 31 and head[1] == 139:
+            return gzip.open(filename, mode, encoding="latin-1")
+        return open(filename, mode, encoding="latin-1")
+    if str(filename).endswith(".gz"):
+        return gzip.open(filename, mode, encoding="latin-1")
+    return open(filename, mode, encoding="latin-1")
+
+
 def write_fasta_record(out: IO[str], name: str, description: str, seq: str) -> None:
     """Emit one polished record to stdout (polish.rs:196-203).
 

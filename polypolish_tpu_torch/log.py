@@ -22,8 +22,23 @@ _RESET = "\033[0m"
 # Set to True to strip ANSI codes (used by tests and --no-color-ish envs).
 PLAIN = bool(os.environ.get("POLYPOLISH_TPU_PLAIN_LOG"))
 
-# When True, all narrative stderr output is suppressed.
+# When True, all narrative stderr output is suppressed (batch mode).
 QUIET = False
+
+
+class quiet:
+    """Context manager that silences the narrative log."""
+
+    def __enter__(self):
+        global QUIET
+        self._prev = QUIET
+        QUIET = True
+        return self
+
+    def __exit__(self, *exc):
+        global QUIET
+        QUIET = self._prev
+        return False
 
 
 def _stderr_width(default: int = 80) -> int:

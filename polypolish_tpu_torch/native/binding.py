@@ -271,6 +271,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.pp_free_lanes.argtypes = [P(_PPLanesView)]
     lib.pp_free_lanes.restype = None
+    lib.pp_depth_fold.restype = None
+    lib.pp_depth_fold.argtypes = [
+        P(i32),                             # run_contig
+        P(i32),                             # run_start
+        P(i32),                             # run_len
+        P(i32),                             # run_k
+        i64,                                # n_runs
+        i32,                                # contig id
+        i64,                                # P
+        P(f64),                             # depth_out
+    ]
     lib.pp_consensus_dense.restype = None
     lib.pp_consensus_dense.argtypes = [
         P(i32),                             # counts (8, P) row-major
@@ -526,3 +537,20 @@ def default_threads() -> int:
     if env:
         return max(1, int(env))
     return max(1, min(os.cpu_count() or 1, 16))
+
+
+def depth_fold(run_contig, run_start, run_len, run_k, contig_id: int,
+               num_positions: int) -> np.ndarray:
+    """(P,) f64 depth of one contig replayed from run headers
+    (pp_depth_fold): the reference's sequential left-fold per position
+    when the headers come in reference order (the pod's merge)."""
+    lib = load_library()
+    cols = [np.ascontiguousarray(a, dtype=np.int32)
+            for a in (run_contig, run_start, run_len, run_k)]
+    depth = np.empty(num_positions, dtype=np.float64)
+    lib.pp_depth_fold(
+        *(a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)) for a in cols),
+        cols[0].shape[0], contig_id, num_positions,
+        depth.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+    )
+    return depth

@@ -71,6 +71,15 @@ class ParsedRuns:
              int(v.file_reads[i]))
             for i in range(int(v.n_files))
         ]
+        # runs per file, in file order (the pod merge cuts the headers
+        # of each file out of every shard)
+        self.file_runs: List[int] = [
+            int(v.file_runs[i]) for i in range(int(v.n_files))
+        ]
+        # the folds run on two threads unless this is False: batch mode
+        # turns it off when one thread parses each genome (the two-thread
+        # fold scans every run twice, more total CPU on busy cores)
+        self.fold_parallel = True
 
     # -- lifecycle ----------------------------------------------------
     def close(self) -> None:
@@ -97,7 +106,7 @@ class ParsedRuns:
 
         counts, depth and the thresholds are pooled buffers that the
         next fold on this thread overwrites.  The C++ fold runs on two
-        threads."""
+        threads unless ``fold_parallel`` is False."""
         cid = self.contig_names.index(contig_name)
         P = self.contig_lens[contig_name]
         depth = _pooled_buffer("depth", (P,), np.float64)
@@ -120,7 +129,7 @@ class ParsedRuns:
             self._view, cid, P,
             counts.ctypes.data_as(ctypes.c_void_p) if want_counts else None,
             depth.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-            1, *thr_args,
+            1 if self.fold_parallel else 0, *thr_args,
         )
         try:
             f = fv.contents
@@ -160,7 +169,8 @@ class ParsedRuns:
             counts.ctypes.data_as(ctypes.c_void_p)
             if counts is not None else None,
             depth.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-            1, int(min_depth), float(f_valid), float(f_invalid),
+            1 if self.fold_parallel else 0,
+            int(min_depth), float(f_valid), float(f_invalid),
             valid.ctypes.data_as(ctypes.c_void_p),
             invalid.ctypes.data_as(ctypes.c_void_p),
             low.ctypes.data_as(ctypes.c_void_p),
@@ -308,10 +318,17 @@ def parse_runs(
     max_errors: int,
     careful: bool,
     n_threads: Optional[int] = None,
+    proc_idx: int = 0,
+    n_procs: int = 1,
 ) -> ParsedRuns:
     """Parse SAM files into a ParsedRuns; interns new vocab strings into
     ``vocab`` (ids line up with the native side); fatals mirror the
-    reference (alignment.rs:214-272)."""
+    reference (alignment.rs:214-272).
+
+    Pod mode (n_procs > 1): parse only byte range ``proc_idx`` of
+    ``n_procs`` of every file (read-group snapped; the same boundary
+    arithmetic in every shard makes the ranges disjoint and complete),
+    and leave the whole-file "no alignments" fatal to the merge."""
     from polypolish_tpu_torch.native import binding
 
     lib = binding.load_library()
@@ -330,7 +347,7 @@ def parse_runs(
         files_blob, len(filenames), names_blob,
         lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
         len(contig_names), vocab_blob, base_vocab_len,
-        max_errors, 1 if careful else 0, n_threads, 0, 1,
+        max_errors, 1 if careful else 0, n_threads, proc_idx, n_procs,
     )
     v = view.contents
     if v.status != 0:

@@ -28,12 +28,15 @@ Split of work:
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
 
-from polypolish_tpu_torch.utils.rounding import bankers_rounding_vec
+from polypolish_tpu_torch.utils.rounding import (
+    bankers_rounding,
+    bankers_rounding_vec,
+)
 from polypolish_tpu_torch.vocab import DENSE_V
 
 # Status codes (debug strings per pileup.rs:156-163).
@@ -246,3 +249,45 @@ def consensus_sparse_override(
     new_id[upos] = nid_u
     status[upos] = st_u
     return upos
+
+
+def consensus_one_position(
+    candidates: List[Tuple[int, int]],
+    orig_id: int,
+    depth: float,
+    min_depth: int,
+    fraction_valid: float,
+    fraction_invalid: float,
+) -> Tuple[int, int, int, int]:
+    """Scalar consensus with an explicit candidate list: the
+    per-position rule (pileup.rs:67-134) that the vectorised passes
+    reproduce.  ``candidates`` is a list of (vocab_id, count); A/C/G/T
+    must be present even at count 0, every other entry must have
+    count >= 1.
+
+    Returns (new_id, status, valid_thr, invalid_thr).
+    """
+    valid_thr = max(min_depth, bankers_rounding(depth * fraction_valid))
+    invalid_thr = bankers_rounding(depth * fraction_invalid)
+
+    valid_ids = [vid for vid, c in candidates if c >= valid_thr]
+    n_inter = sum(
+        1 for vid, c in candidates if c < valid_thr and c >= invalid_thr
+    )
+
+    new_id = orig_id
+    status = ST_KEPT
+    if depth < min_depth:
+        status = ST_LOW_DEPTH
+    elif len(valid_ids) == 1:
+        if n_inter > 0:
+            status = ST_TOO_CLOSE
+        else:
+            new_id = valid_ids[0]
+            if new_id != orig_id:
+                status = ST_CHANGED
+    elif len(valid_ids) == 0:
+        status = ST_NONE
+    else:
+        status = ST_MULTIPLE
+    return new_id, status, valid_thr, invalid_thr

@@ -29,6 +29,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from polypolish_tpu_torch.ops import launch_count
 from polypolish_tpu_torch.vocab import DENSE_V
 
 TILE_P = 256  # positions per output tile
@@ -298,7 +299,7 @@ def chunk_vote_launch(chunk_pos: torch.Tensor, chunk_vocab: torch.Tensor,
                  out.data_ptr(), n_tiles, tile_p, e_sub, stream)
     if err != 0:
         raise RuntimeError(f"chunk_vote launch failed: CUDA error {err}")
-    chunk_counts.launches += 1
+    launch_count.bump(chunk_counts)
     return out, plan
 
 

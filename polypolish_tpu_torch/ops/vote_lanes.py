@@ -39,6 +39,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from polypolish_tpu_torch.ops import launch_count
 from polypolish_tpu_torch.vocab import DENSE_V
 
 TILE_W = 2048  # positions per tile
@@ -373,7 +374,7 @@ def lanes_counts(vb: torch.Tensor, block_tile: torch.Tensor, n_tiles: int,
                  n_tiles, tile_w, stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
-    lanes_counts.launches[entry] += 1
+    launch_count.bump(lanes_counts, entry)
     return out
 
 

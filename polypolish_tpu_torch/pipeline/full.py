@@ -29,15 +29,20 @@ def polish_paired(
     careful: bool = False,
     out: Optional[TextIO] = None,
     backend: str = "device",
+    use_native: bool = True,
     n_threads: Optional[int] = None,
+    pod_shards: int = 0,
     keep_filtered: Optional[str] = None,
     kernel_variant: str = "lanes",
     device="cuda",
 ) -> List[Tuple[str, int]]:
     """Filter the pair, then polish with the filtered alignments.
 
-    ``backend``, ``kernel_variant`` and ``device`` go to the port's
-    polish; ``device`` also runs the filter's device grid step.
+    ``backend``, ``kernel_variant``, ``use_native`` and ``device`` go to
+    the port's polish; ``device`` also runs the filter's device grid
+    step.  pod_shards: when > 1, the polish stage runs with its SAM
+    ingest sharded over that many byte-range shards (the polish
+    subcommand's --pod-shards; byte-identical to unsharded).
     keep_filtered: optional directory to keep the filtered SAMs in
     (otherwise they live in a temporary directory removed afterwards).
     """
@@ -54,10 +59,23 @@ def polish_paired(
     try:
         filter_pairs(in1, in2, out1, out2, orientation, low, high,
                      device=device)
+        if pod_shards and pod_shards > 1:
+            from polypolish_tpu_torch.pipeline.pod import (
+                polish_pod,
+                refuse_or_note,
+            )
+
+            refuse_or_note(use_native, backend)
+            return polish_pod(
+                debug, fraction_invalid, fraction_valid, max_errors,
+                min_depth, careful, assembly, [out1, out2], pod_shards,
+                out=out, n_threads=n_threads,
+            )
         return polish(
             debug, fraction_invalid, fraction_valid, max_errors, min_depth,
             careful, assembly, [out1, out2],
-            out=out, backend=backend, n_threads=n_threads, device=device,
+            out=out, backend=backend, use_native=use_native,
+            n_threads=n_threads, device=device,
             kernel_variant=kernel_variant,
         )
     finally:

@@ -2,8 +2,9 @@
 polypolish_tpu/pipeline/polish.py; reference: polish.rs:26-300).
 
 Host orchestration: validate options, load the assembly, parse every
-SAM file with the native run engine, then per contig compute the votes
-and the consensus and emit the polished FASTA to stdout (stats to
+SAM file with the native run engine (or, with ``use_native=False``, the
+pure-Python reader of ``--pure-python``), then per contig compute the
+votes and the consensus and emit the polished FASTA to stdout (stats to
 stderr, optional per-base debug TSV).
 
 Three backends (the JAX package's ``pallas`` is the port's
@@ -22,6 +23,13 @@ Three backends (the JAX package's ``pallas`` is the port's
   the JAX package leaves it to XLA).
 - ``host``: the C++ fold of the (8, P) counts plus the C++ consensus —
   an independent reference for the device paths, never a fallback.
+
+The pure-Python reader fills each contig's event stream (``ops/pack.py``)
+instead of the native runs; its backends are the JAX package's event
+branches: ``host`` counts with numpy, ``device`` packs the events into
+chunks (``PolisherModel.pack``) and counts the whole pileup with the
+chunk vote kernel, whatever ``kernel_variant`` says, and ``xla`` counts
+with a torch scatter-add.  Depth and thresholds stay on the host.
 
 Contigs of POLYPOLISH_TPU_WINDOW_MIN positions or more (32,000,000 by
 default; 0 disables) take the windowed path on backends ``host`` and
@@ -53,11 +61,15 @@ from polypolish_tpu_torch.ops import pack
 from polypolish_tpu_torch.ops.consensus import (
     ST_CHANGED,
     STATUS_STRINGS,
+    compute_thresholds,
+    consensus_dense_core,
+    consensus_dense_numpy,
     consensus_sparse_override,
 )
+from polypolish_tpu_torch.ops.vote import count_votes
 from polypolish_tpu_torch.ops.vote_lanes import R_SUB, TILE_W, geom_pad
 from polypolish_tpu_torch.stats import qscore
-from polypolish_tpu_torch.utils.profiling import StageTimer
+from polypolish_tpu_torch.utils.profiling import StageTimer, maybe_trace, phase
 from polypolish_tpu_torch.utils.timing import format_duration
 from polypolish_tpu_torch.vocab import DENSE_V, Vocab
 
@@ -103,11 +115,14 @@ def polish(
     device="cuda",
     timer: Optional[StageTimer] = None,
     kernel_variant: str = "lanes",
+    use_native: bool = True,
 ) -> List[Tuple[str, int]]:
     """Run the full polish workflow; returns [(name, new_length)].
 
     ``kernel_variant`` ("lanes" or "mxu") picks the vote kernel of
-    backend "device" (the JAX package's POLYPOLISH_TPU_KERNEL).
+    backend "device" (the JAX package's POLYPOLISH_TPU_KERNEL) on the
+    native path.  ``use_native=False`` reads the SAM files with the
+    pure-Python reader (``--pure-python``).
     ``timer`` (optional) collects wall seconds per stage: parse, fold,
     pack, upload, kernel_a, kernel_b, scatter, consensus, gather (the
     windowed device path's sparse columns), fetch, finish."""
@@ -130,20 +145,27 @@ def polish(
         debug, fraction_invalid, fraction_valid, max_errors, min_depth,
         careful, assembly, sam,
     )
-    seq_names, votes = load_assembly(assembly)
+    with phase("load_assembly"):
+        seq_names, votes = load_assembly(assembly)
     vocab = Vocab()
-    with timer.stage("parse"):
-        runs_handle = _load_alignments_runs(
-            max_errors, careful, sam, votes, vocab, n_threads
-        )
+    runs_handle = None
+    with phase("load_alignments"), timer.stage("parse"):
+        if use_native:
+            runs_handle = _load_alignments_runs(
+                max_errors, careful, sam, votes, vocab, n_threads
+            )
+        else:
+            load_alignments(max_errors, careful, sam, votes, vocab)
     try:
-        new_lengths = polish_sequences(
-            debug, fraction_invalid, fraction_valid, min_depth,
-            seq_names, votes, vocab, out, backend, runs_handle, dev, timer,
-            kernel_variant,
-        )
+        with phase("polish_sequences"), maybe_trace():
+            new_lengths = polish_sequences(
+                debug, fraction_invalid, fraction_valid, min_depth,
+                seq_names, votes, vocab, out, backend, runs_handle, dev,
+                timer, kernel_variant,
+            )
     finally:
-        runs_handle.close()
+        if runs_handle is not None:
+            runs_handle.close()
     finished_message(debug, new_lengths, start_time)
     return new_lengths
 
@@ -268,8 +290,26 @@ def _load_alignments_runs(
         [str(s) for s in sam], contig_names, contig_lens, vocab,
         max_errors, careful, n_threads,
     )
+    if n_threads == 1:  # batch mode: no per-genome fold threads
+        pr.fold_parallel = False
     _report_alignment_stats(sam, pr.file_stats, careful)
     return pr
+
+
+def load_alignments(
+    max_errors: int,
+    careful: bool,
+    sam: List[str],
+    votes: Dict[str, pack.ContigVotes],
+    vocab: Vocab,
+) -> None:
+    """The pure-Python reader: each SAM file (plain, gzipped or BAM) in
+    turn into the contigs' event streams (pack.process_sam).  Reference:
+    polish.rs:109-134."""
+    log.section_header("Loading alignments")
+    stats_list = [pack.process_sam(s, votes, vocab, max_errors, careful)
+                  for s in sam]
+    _report_alignment_stats(sam, stats_list, careful)
 
 
 def polish_sequences(
@@ -277,7 +317,9 @@ def polish_sequences(
     seq_names, votes, vocab, out: TextIO, backend: str,
     runs_handle, device: torch.device, timer: StageTimer, variant: str,
 ) -> List[Tuple[str, int]]:
-    """Reference: polish.rs:137-154."""
+    """Reference: polish.rs:137-154.  ``runs_handle`` None takes each
+    contig's event stream (``contig.finalize()``) instead of the native
+    runs."""
     log.section_header("Polishing assembly sequences")
     log.explanation(
         "For each position in the assembly, Polypolish determines the read "
@@ -332,7 +374,7 @@ def polish_one_sequence(
     runs_handle, device: torch.device, timer: StageTimer, variant: str,
 ) -> int:
     """Reference: polish.rs:157-193 (vectorised).  ``variant`` is
-    backend device's vote kernel: "lanes" or "mxu"."""
+    backend device's vote kernel on the native runs: "lanes" or "mxu"."""
     seq_len = contig.length
     log.eprint(f"Polishing {name} ({log.thousands(seq_len)} bp):")
 
@@ -341,7 +383,8 @@ def polish_one_sequence(
     # huge contigs stream through position windows (O(window) host
     # buffers), under the JAX package's conditions; --debug needs the
     # whole contig's counts
-    windowed = (debug_file is None and seq_len >= _window_min()
+    windowed = (runs_handle is not None and debug_file is None
+                and seq_len >= _window_min()
                 and runs_handle.base_vocab_len <= DENSE_V)
     if windowed and backend == "host":
         return _polish_host_runs_windowed(
@@ -353,7 +396,26 @@ def polish_one_sequence(
             runs_handle, name, description, contig.seq, orig_id, vocab,
             out, thresholds, device, timer,
         )
-    if backend == "host":
+    if runs_handle is None and backend == "host":
+        pos, vid, weight = contig.finalize()
+        with timer.stage("fold"):
+            counts, depth, sparse = count_votes(pos, vid, weight, seq_len,
+                                                "host")
+            valid_thr, invalid_thr, low_depth = compute_thresholds(
+                depth, min_depth, fraction_valid, fraction_invalid
+            )
+        with timer.stage("consensus"):
+            new_id, status = consensus_dense_numpy(
+                counts, valid_thr, invalid_thr, low_depth, orig_id
+            )
+    elif runs_handle is None:
+        pos, vid, weight = contig.finalize()
+        (counts, new_id, status, depth, sparse,
+         valid_thr, invalid_thr) = _polish_device(
+            pos, vid, weight, seq_len, orig_id, thresholds, device, timer,
+            backend,
+        )
+    elif backend == "host":
         with timer.stage("fold"):
             counts, depth, sparse, thr = runs_handle.fold(
                 name, thresholds=thresholds
@@ -424,7 +486,7 @@ def finish_sequence(
     # per-base depths one at a time in position order (polish.rs:177) and
     # f64 addition is order-sensitive.  The native helper is a strict
     # sequential scan.
-    total_depth = binding.sum_f64_seq(depth)
+    total_depth = binding.sum_f64_seq(depth) if len(depth) else 0.0
     zero_depth_count = int(np.count_nonzero(depth == 0.0))
     changed_count = int(np.count_nonzero(status == ST_CHANGED))
     print_polishing_info(
@@ -738,6 +800,67 @@ def _vote_chunks_runs(runs_handle, name, seq_len, p_pad, thr_args, device,
     return counts_t[:, :seq_len], new_id, status
 
 
+def _polish_device(pos, vid, weight, seq_len, orig_id, thresholds, device,
+                   timer, backend):
+    """The device backends of the event stream (the JAX package's
+    _polish_device): f64 depth, sparse tier and thresholds on the host
+    (numpy), then the dense votes and the consensus on ``device`` over a
+    geometric position bucket (pad positions: low_depth, thresholds
+    INT32_MAX, orig_id 0, so they keep).  Backend "device" packs the
+    events into chunks (``PolisherModel.pack``) and counts them with the
+    chunk vote kernel; "xla" counts with a torch scatter-add.  Returns
+    (counts (8, seq_len) tensor, new_id, status, depth, sparse,
+    valid_thr, invalid_thr)."""
+    from polypolish_tpu_torch.models.polisher import PolisherModel
+    from polypolish_tpu_torch.ops.vote import (
+        dense_counts_xla,
+        depth_host,
+        sparse_counts_host,
+    )
+
+    min_depth, fraction_valid, fraction_invalid = thresholds
+    with timer.stage("fold"):
+        depth = depth_host(pos, weight, seq_len)
+        sparse = sparse_counts_host(pos, vid)
+        valid_thr, invalid_thr, low_depth = compute_thresholds(
+            depth, min_depth, fraction_valid, fraction_invalid
+        )
+    p_pad = _pad_bucket(seq_len)
+    i32max = np.int32(2**31 - 1)
+
+    def pad(arr, fill, dtype):
+        out = np.full(p_pad, fill, dtype=dtype)
+        out[:seq_len] = arr
+        return torch.from_numpy(out).to(device)
+
+    with timer.stage("upload"):
+        thr_args = (
+            pad(valid_thr, i32max, np.int32),
+            pad(invalid_thr, i32max, np.int32),
+            pad(low_depth, True, bool),
+            pad(orig_id, 0, np.int32),
+        )
+    if backend == "device":
+        model = PolisherModel(p_pad, device, timer=timer)
+        with timer.stage("pack"):
+            chunks = model.pack(pos, vid)
+        counts_t, new_id_t, status_t = model(*chunks, *thr_args)
+    else:
+        with timer.stage("upload"):
+            d_pos = torch.from_numpy(np.asarray(pos, np.int64)).to(device)
+            d_vid = torch.from_numpy(np.asarray(vid, np.int64)).to(device)
+        with timer.stage("scatter"):
+            counts_t = dense_counts_xla(d_pos, d_vid, p_pad)
+        del d_pos, d_vid
+        with timer.stage("consensus"):
+            new_id_t, status_t = consensus_dense_core(counts_t, *thr_args)
+    with timer.stage("fetch"):
+        new_id = new_id_t[:seq_len].cpu().numpy()
+        status = status_t[:seq_len].cpu().numpy()
+    return (counts_t[:, :seq_len], new_id, status, depth, sparse,
+            valid_thr, invalid_thr)
+
+
 def _apply_edits(seq: str, status: np.ndarray, new_id: np.ndarray, vocab: Vocab) -> str:
     """Polished sequence = original with CHANGED positions spliced in.
 
@@ -827,7 +950,7 @@ def _write_debug_lines(
     Columns: name pos base depth invalid valid pileup status new_base,
     with the pileup column as sorted comma-joined "SEQxCOUNT" entries.
     Uses the native (C++) streaming writer for ASCII content; the Python
-    loop below is its byte-identical twin.
+    loop below is its byte-identical twin for the rest.
     """
     if _write_debug_lines_native(
         debug_file, name, seq, depth, invalid_thr, valid_thr, counts,

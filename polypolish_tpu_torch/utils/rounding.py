@@ -18,6 +18,17 @@ from __future__ import annotations
 import numpy as np
 
 
+def bankers_rounding(x: float) -> int:
+    """Scalar round-half-to-even for non-negative f64 (misc.rs:208-215)."""
+    rounded_down = int(x)  # truncation toward zero, same as Rust `as u32`
+    fract = x - rounded_down
+    if fract < 0.5:
+        return rounded_down
+    if fract > 0.5:
+        return rounded_down + 1
+    return rounded_down + (rounded_down & 1)
+
+
 def bankers_rounding_vec(x: np.ndarray) -> np.ndarray:
     """Vectorised round-half-to-even over a non-negative f64 array.
 

@@ -460,3 +460,91 @@ def test_pair_screen_step_gpu_matches_cpu(cuda_device):
                             num_alignments=n_align).cpu()
            for dev in (cuda_device, "cpu")]
     assert torch.equal(got[0], got[1])
+
+
+def _event_case(tmp_path):
+    fasta, sam_text = synth.make_polish_case(
+        seed=12, genome_len=8_000, n_reads=6_000, read_len=60, err=0.15,
+        multi_frac=0.5, n_draft_errors=25)
+    asm, sam = tmp_path / "e.fasta", tmp_path / "e.sam"
+    asm.write_text(synth.fasta_text(fasta))
+    sam.write_text(sam_text)
+    return asm, sam
+
+
+@pytest.mark.parametrize("backend", ["device", "xla"])
+def test_event_path_on_gpu_matches_cpu(cuda_device, tmp_path, backend):
+    """The pure-Python reader's event stream on the card (backend device:
+    PolisherModel.pack, then one chunk-kernel launch and no lanes
+    launch, whatever the kernel variant) against the same run on the
+    CPU (the kernel's plain version), FASTA and --debug TSV."""
+    asm, sam = _event_case(tmp_path)
+    results = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        out, err = io.StringIO(), io.StringIO()
+        dbg = tmp_path / f"{dev.type}.tsv"
+        tvl.lanes_counts.launches.clear()
+        tvc.chunk_counts.launches = 0
+        with contextlib.redirect_stderr(err):
+            polish(str(dbg), 0.2, 0.5, 10, 5, False, str(asm), [str(sam)],
+                   out=out, backend=backend, device=dev, use_native=False,
+                   kernel_variant="lanes")
+        results[dev.type] = (out.getvalue(), dbg.read_text())
+        if dev.type == "cuda":
+            assert sum(tvl.lanes_counts.launches.values()) == 0
+            assert tvc.chunk_counts.launches == (backend == "device")
+    assert results["cuda"] == results["cpu"]
+
+
+def _has_overflow(asm, sams):
+    """Whether the lanes path's pack of a one-contig genome has
+    cap-overflow events (then the chunk kernel folds them)."""
+    from polypolish_tpu_torch.io.fasta import load_fasta
+    from polypolish_tpu_torch.native.runs import parse_runs
+    from polypolish_tpu_torch.pipeline.polish import _pad_bucket
+    from polypolish_tpu_torch.vocab import Vocab
+
+    (name, _, seq), = load_fasta(asm)
+    pr = parse_runs(sams, [name], {name: len(seq)}, Vocab(), 10, False)
+    try:
+        pack = pr.lanes(name, tvl.R_SUB, tvl.TILE_W, packed4=True, cap=True,
+                        num_positions=_pad_bucket(len(seq)))
+        try:
+            return pack.n_overflow > 0
+        finally:
+            pack.close()
+    finally:
+        pr.close()
+
+
+def test_batch_on_gpu_counts_every_launch(cuda_device, tmp_path):
+    """polish_batch with three workers on the card: every output equals
+    the host backend's, and the launch counters, shared by the worker
+    threads under one lock, count exactly one kernel-A launch and one
+    overflow fold per genome."""
+    from polypolish_tpu_torch.pipeline.batch import polish_batch
+
+    jobs = []
+    for i in range(6):
+        fasta, sam_text = synth.make_polish_case(
+            seed=40 + i, genome_len=20_000, n_reads=20_000, read_len=60,
+            err=0.15, multi_frac=0.5, n_draft_errors=40)
+        asm, sam = tmp_path / f"b{i}.fasta", tmp_path / f"b{i}.sam"
+        asm.write_text(synth.fasta_text(fasta))
+        sam.write_text(sam_text)
+        jobs.append((str(asm), str(tmp_path / f"o{i}.fasta"), [str(sam)]))
+    host = [(a, str(tmp_path / f"h{i}.fasta"), s)
+            for i, (a, _, s) in enumerate(jobs)]
+    with contextlib.redirect_stderr(io.StringIO()):
+        polish_batch(host, backend="host", workers=1)
+        tvl.lanes_counts.launches.clear()
+        tvc.chunk_counts.launches = 0
+        results = polish_batch(jobs, backend="device", workers=3,
+                               device=cuda_device)
+    assert all("error" not in r for r in results)
+    assert tvl.lanes_counts.launches == {"lanes_vote_packed4": 6}
+    assert tvc.chunk_counts.launches == sum(_has_overflow(*j[::2])
+                                           for j in jobs)
+    for (_, got, _), (_, want, _) in zip(jobs, host):
+        with open(got) as g, open(want) as w:
+            assert g.read() == w.read()

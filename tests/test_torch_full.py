@@ -146,7 +146,8 @@ def test_filter_cli_matches_jax_cli(tmp_path):
 def test_full_cli_matches_jax_cli(tmp_path):
     asm, in1, in2 = _case(tmp_path, 65)
     args = ["full", "--in1", in1, "--in2", in2, asm]
-    got = _cli("polypolish_tpu_torch", *args, "--device", "cpu")
+    got = _cli("polypolish_tpu_torch", *args, "--backend", "device",
+               "--device", "cpu")
     assert got[0] == 0, got[2]
     assert got == _cli("polypolish_tpu", *args, "--backend", "host")
     assert got == _cli("polypolish_tpu_torch", *args, "--backend", "host",

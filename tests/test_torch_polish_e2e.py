@@ -189,7 +189,8 @@ def test_cli_matches_jax_cli(tmp_path):
             tsv = f.read()
         return proc.stdout, tsv, mask_clock(proc.stderr)
 
-    got = cli("polypolish_tpu_torch", "--device", "cpu")
+    got = cli("polypolish_tpu_torch", "--backend", "device", "--device",
+              "cpu")
     assert got == cli("polypolish_tpu_torch", "--backend", "host")
     assert got == cli("polypolish_tpu", "--backend", "host")
 
@@ -215,8 +216,8 @@ def test_cli_backend_flags_match_jax_cli(tmp_path):
     assert (cli("polypolish_tpu_torch", "--backend", "xla", "--device",
                 "cpu")
             == cli("polypolish_tpu", "--backend", "xla"))
-    assert (cli("polypolish_tpu_torch", "--kernel-variant", "mxu",
-                "--device", "cpu")
+    assert (cli("polypolish_tpu_torch", "--backend", "device",
+                "--kernel-variant", "mxu", "--device", "cpu")
             == cli("polypolish_tpu", "--backend", "pallas",
                    "--kernel-variant", "mxu"))
 
@@ -229,15 +230,24 @@ def test_entry_points_default_to_cuda():
     from polypolish_tpu_torch import cli
     from polypolish_tpu_torch.models import polisher
     from polypolish_tpu_torch.ops import vote, vote_chunks, vote_lanes
+    from polypolish_tpu_torch.pipeline.batch import polish_batch
+    from polypolish_tpu_torch.utils import transport
 
     for fn in (port_polish, vote.count_votes, vote_lanes.dense_counts_lanes,
                vote_chunks.dense_counts_chunks, polisher.PolisherModel,
-               polisher.example_inputs):
+               polisher.example_inputs, polish_batch,
+               transport.predict_backend, transport.measure_link):
         default = inspect.signature(fn).parameters["device"].default
         assert default == "cuda", fn
+    # the CLI's default backend is auto, as in the JAX CLI; the library
+    # default of polish() stays device
     args = cli.build_parser().parse_args(["polish", "a.fasta", "a.sam"])
     assert (args.device, args.backend, args.kernel_variant) == (
-        "cuda", "device", "lanes")
+        "cuda", "auto", "lanes")
+    args = cli.build_parser().parse_args(["batch", "m.tsv"])
+    assert (args.device, args.backend) == ("cuda", "auto")
+    assert inspect.signature(port_polish).parameters["backend"].default == \
+        "device"
 
 
 def test_cli_fatal_error_exit_code(tmp_path):
@@ -252,12 +262,26 @@ def test_cli_fatal_error_exit_code(tmp_path):
 
 _NO_JAX_SCRIPT = r"""
 import io, os, sys
+from polypolish_tpu_torch import cli
+from polypolish_tpu_torch.io import bam
 from polypolish_tpu_torch.pipeline import filtering
+from polypolish_tpu_torch.pipeline.batch import polish_batch
 from polypolish_tpu_torch.pipeline.full import polish_paired
+from polypolish_tpu_torch.pipeline.pod import polish_pod
 from polypolish_tpu_torch.pipeline.polish import polish
-for kwargs in (dict(), dict(kernel_variant="mxu"), dict(backend="xla")):
+from polypolish_tpu_torch.utils import transport
+for kwargs in (dict(), dict(kernel_variant="mxu"), dict(backend="xla"),
+               dict(use_native=False), dict(use_native=False, backend="xla"),
+               dict(use_native=False, backend="host")):
     polish(None, 0.2, 0.5, 10, 5, False, sys.argv[1], [sys.argv[2]],
            out=io.StringIO(), device="cpu", **kwargs)
+polish_pod(None, 0.2, 0.5, 10, 5, False, sys.argv[1], [sys.argv[2]], 2,
+           out=io.StringIO())
+out = os.path.join(sys.argv[5], "batch.fasta")
+polish_batch([(sys.argv[1], out, [sys.argv[2]])] * 2, device="cpu",
+             workers=2)
+assert cli._resolve_backend("auto", [sys.argv[2]], device="cpu") == "host"
+transport.measure_link(device="cpu")
 os.environ["POLYPOLISH_TPU_WINDOW_MIN"] = "1"
 os.environ["POLYPOLISH_TPU_WINDOW"] = "100"
 for backend in ("device", "host"):
@@ -337,7 +361,11 @@ def test_port_sources_import_no_jax():
                    "ops/pairfilter.py", "models/polisher.py",
                    "models/pairscreen.py", "pipeline/polish.py",
                    "pipeline/filtering.py", "pipeline/full.py",
-                   "native/runs.py", "cli.py"):
+                   "native/runs.py", "cli.py", "ops/cigar.py",
+                   "ops/pack.py", "ops/launch_count.py", "io/sam.py",
+                   "io/bam.py", "utils/revcomp.py", "utils/transport.py",
+                   "utils/malloc_tuning.py", "pipeline/batch.py",
+                   "pipeline/pod.py"):
         assert os.path.join("polypolish_tpu_torch", module) in scanned
     assert "chip_smoke.py" in scanned
     assert offenders == []
