@@ -99,6 +99,22 @@ Phases, in order; any failure raises and exits non-zero:
    takes the predicted backend and equals the host FASTA;
    ``polish --pod-shards 4`` on E. coli and repeats equals the host run
    (FASTA, --debug TSV, stderr but for the "Pod mode:" line).
+13. The multi-device half on grids of ``cuda:0`` and gloo ranks on it.
+   ``polish(backend="sharded")`` on E. coli at grids 1x1 and 2x2 and on
+   repeats at 2x1 and 1x2: FASTA and stderr equal to phase 4's host
+   run, kernel A launched once per grid cell (the mesh pack, no cap, so
+   no chunk kernel), every kernel call held bitwise against its plain
+   version (capture_calls); the mesh pack's bytes, its block count,
+   stage times and peak device memory; kernel A timed on the 1x1
+   E. coli mesh pack.  Then two ranks of ``polish --distributed`` with
+   POLYPOLISH_TPU_POD_DEVICE_VOTES=1 on E. coli, both on ``cuda:0``
+   over a localhost gloo group: rank 0's FASTA and stderr (but for the
+   "Pod mode:" line and gloo's lines) equal the host run, rank 1's
+   stdout is empty, each rank reports kernel A once and the chunk
+   kernel once if its pack had cap-overflow events, and leaves its
+   group.  Last, two ranks of ``batch --shard-across-hosts --backend
+   device`` over phase 11's six jobs: three each, every output equal to
+   its genome's host FASTA.
 
 Then the ``kernels`` JSON line and, last, the device JSON line.
 
@@ -750,7 +766,7 @@ def main() -> int:
     # -- phases 7-9: windowed polish, default windows, filter and full -
     ctx = dict(dev=dev, zero_counts=zero_counts, read_counts=read_counts,
                lanes=LANES, errs=errs, check_lanes=check_lanes,
-               check_chunks=check_chunks)
+               check_chunks=check_chunks, launches=launches)
     phase_windowed_ecoli(ctx, cases["ecoli50x"], host_runs["ecoli50x"])
     phase_default_windows(ctx)
     cases["repeats16"] = phase_filter_full(ctx, cases)
@@ -759,6 +775,9 @@ def main() -> int:
     phase_event_path(ctx, cases["ecoli50x"], host_runs["ecoli50x"])
     phase_batch(ctx, cases, host_runs)
     phase_auto_pod(ctx, cases, host_runs, pack_bytes)
+
+    # -- phase 13: sharded grids, gloo ranks, batch across hosts -------
+    uncapped = phase_sharded_pod(ctx, cases, host_runs)
 
     def entry(name, source, replaces, label):
         ms, plain, lib, _, _ = timed[label]
@@ -782,6 +801,12 @@ def main() -> int:
               f"{vp}:144 (split), {vp}:99 (fused), {vp}:60 (unfused)",
               "chunk_vote"),
     ]
+    # kernel A on the uncapped 1x1 E. coli mesh pack of phase 13
+    ms, plain, lib, votes, n_bytes = uncapped
+    b_ms, _ = bound(n_bytes, votes)
+    kernels[0].update({"uncapped_ms": ms, "uncapped_plain_ms": plain,
+                       "uncapped_bound_ms": b_ms,
+                       "uncapped_library_ms": lib})
     for role in ("overflow fold", "repeats"):
         label = f"chunk_vote ({role})"
         key = role.replace(" ", "_")
@@ -1299,17 +1324,21 @@ def no_launches(counts):
 
 @contextlib.contextmanager
 def capture_calls(**wrappers):
-    """Record the arguments of every call the model makes to the kernel
-    wrappers named (attributes of models/polisher.py, which calls them)
-    while the block runs; each call goes through unchanged.  Yields
-    {name: [args, ...]}."""
+    """Record the arguments of every call the models and the grid step
+    make to the kernel wrappers named (attributes of models/polisher.py
+    and parallel/shard.py, which call them) while the block runs; each
+    call goes through unchanged.  Yields {name: [args, ...]}."""
     from polypolish_tpu_torch.models import polisher
+    from polypolish_tpu_torch.parallel import shard
 
     calls = {name: [] for name in wrappers}
-    originals = {name: getattr(polisher, name) for name in wrappers}
+    originals = {(mod, name): getattr(mod, name)
+                 for mod in (polisher, shard) for name in wrappers
+                 if hasattr(mod, name)}
 
-    def recorder(name):
-        fn = originals[name]
+    def recorder(key):
+        fn = originals[key]
+        name = key[1]
 
         def call(*args, **kwargs):
             check(not kwargs, f"{name} called with keywords {kwargs}")
@@ -1321,13 +1350,13 @@ def capture_calls(**wrappers):
 
         return call
 
-    for name in wrappers:
-        setattr(polisher, name, recorder(name))
+    for mod, name in originals:
+        setattr(mod, name, recorder((mod, name)))
     try:
         yield calls
     finally:
-        for name, fn in originals.items():
-            setattr(polisher, name, fn)
+        for (mod, name), fn in originals.items():
+            setattr(mod, name, fn)
 
 
 def check_captured(ctx, label, calls):
@@ -1445,9 +1474,9 @@ def phase_batch(ctx, cases, host_runs):
 
     t0 = time.monotonic()
     genomes = ("ecoli50x", "repeats", "repeats16")
-    host = {g: host_runs[g][0] for g in genomes if g in host_runs}
-    host["repeats16"] = polish_run(ctx, *cases["repeats16"],
-                                   backend="host")[0]
+    host_runs["repeats16"] = polish_run(ctx, *cases["repeats16"],
+                                        backend="host")[:2]
+    host = {g: host_runs[g][0] for g in genomes}
     n_ov = {}
     for g in genomes:
         fasta, sams = cases[g]
@@ -1588,6 +1617,280 @@ def phase_auto_pod(ctx, cases, host_runs, pack_bytes):
         print(f"--pod-shards 4 {case}: FASTA, --debug TSV and stderr (but "
               f"the Pod mode line) == host")
     print(f"phase 12 (auto and pod shards): {time.monotonic() - t0:.1f} s")
+
+
+# -- phase 13 ---------------------------------------------------------
+
+RANK_TIMEOUT_S = 300
+# one rank of a process group: the port's CLI, each kernel call of its
+# models held against the plain version on the same tensors, then its
+# launch counters, the lane packs it made, the largest difference from
+# plain and whether it left its group, on stderr
+RANK_LAUNCHER = r"""
+import json, sys, time
+import torch.distributed as dist
+from polypolish_tpu_torch import cli
+from polypolish_tpu_torch.models import polisher
+from polypolish_tpu_torch.native import runs
+from polypolish_tpu_torch.ops import vote_chunks, vote_lanes
+
+packs = {"packs": 0, "with_overflow": 0}
+max_abs_err = {"lanes_vote_packed4": 0, "chunk_vote": 0}
+lanes = runs.ParsedRuns.lanes
+
+
+def counted(self, *args, **kwargs):
+    pack = lanes(self, *args, **kwargs)
+    if pack is not None:
+        packs["packs"] += 1
+        packs["with_overflow"] += int(pack.n_overflow > 0)
+    return pack
+
+
+def held(entry, fn, plain):
+    def call(*args):
+        got = fn(*args)
+        want = plain(*args)
+        if got.shape != want.shape:
+            raise AssertionError(f"{entry}: {tuple(got.shape)} != plain "
+                                 f"{tuple(want.shape)}")
+        if got.numel():
+            err = int((got.long() - want.long()).abs().max())
+            max_abs_err[entry] = max(max_abs_err[entry], err)
+        return got
+    return call
+
+
+runs.ParsedRuns.lanes = counted
+polisher.lanes_counts = held("lanes_vote_packed4", polisher.lanes_counts,
+                             vote_lanes.lanes_counts_plain)
+polisher.chunk_counts = held("chunk_vote", polisher.chunk_counts,
+                             vote_chunks.chunk_counts_plain)
+t0 = time.monotonic()
+rc = cli.main(sys.argv[1:])
+print("RANK " + json.dumps(dict(
+    rc=rc, wall_s=time.monotonic() - t0, left_group=not dist.is_initialized(),
+    lanes=dict(vote_lanes.lanes_counts.launches),
+    chunk_vote=vote_chunks.chunk_counts.launches, max_abs_err=max_abs_err,
+    **packs)), file=sys.stderr)
+sys.exit(rc)
+"""
+GLOO_LINE = re.compile(r"^\[[WIE]\d{4} [^\]]*\] \[c10d\].*\n?", re.M)
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def run_ranks(argvs, envs):
+    """Start one RANK_LAUNCHER process per (argv, environment) at once;
+    returns
+    [(stdout, stderr without the RANK line, RANK dict)].  Every process
+    is killed if any outlives RANK_TIMEOUT_S."""
+    procs = [subprocess.Popen([sys.executable, "-c", RANK_LAUNCHER, *argv],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=env, cwd=HERE)
+             for argv, env in zip(argvs, envs)]
+    results = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=RANK_TIMEOUT_S)
+            check(p.returncode == 0,
+                  f"rank exit code {p.returncode}\n{err[-4000:]}")
+            lines = err.splitlines(keepends=True)
+            rank = [ln for ln in lines if ln.startswith("RANK ")]
+            check(len(rank) == 1, f"rank printed no RANK line\n{err[-4000:]}")
+            results.append((out, "".join(ln for ln in lines
+                                         if not ln.startswith("RANK ")),
+                            json.loads(rank[0][5:])))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return results
+
+
+def check_rank_launches(ctx, label, info):
+    """A rank launched kernel A once per lane pack it made, the chunk
+    kernel once per pack with cap-overflow events, nothing else, and
+    every call equalled its plain version on the same tensors; adds the
+    launches and the differences to the kernels line's."""
+    want = {"lanes": {"lanes_vote_packed4": info["packs"]},
+            "chunk_vote": info["with_overflow"]}
+    got = {"lanes": {k: v for k, v in info["lanes"].items() if v},
+           "chunk_vote": info["chunk_vote"]}
+    check(got == want and info["packs"] > 0 and info["left_group"],
+          f"{label}: launches {got}, want {want}; left its group "
+          f"{info['left_group']}")
+    check(not any(info["max_abs_err"].values()),
+          f"{label}: a kernel call != plain (max err {info['max_abs_err']})")
+    for k, n in info["lanes"].items():
+        ctx["launches"][k] += n
+    ctx["launches"]["chunk_vote"] += info["chunk_vote"]
+    for k, err in info["max_abs_err"].items():
+        ctx["errs"][k] = max(ctx["errs"][k], err)
+
+
+def last_block(vb: torch.Tensor, rows_per_block: int) -> int:
+    """Blocks of a packed4 cell up to its last one holding a vote (the
+    pack pads every cell to one block count)."""
+    full = (vb != -1).view(-1, rows_per_block * vb.shape[1]).any(dim=1)
+    idx = torch.nonzero(full)
+    return int(idx.max()) + 1 if idx.numel() else 0
+
+
+def time_kernel_a(vb, bt, n_tiles, r_sub, tile_w):
+    """(ms, plain ms, torch.bincount ms, votes, bytes) of kernel A alone
+    on one pack, as phase 6 times it."""
+    from polypolish_tpu_torch.ops import vote_lanes
+
+    starts = torch.from_numpy(vote_lanes.tile_row_start(
+        bt.cpu().numpy(), n_tiles, r_sub // 4)).to(vb.device)
+    out = torch.empty((8, n_tiles * tile_w), dtype=torch.int32,
+                      device=vb.device)
+    fn = vote_lanes._kernel().lanes_vote_packed4
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        check(fn(vb.data_ptr(), starts.data_ptr(), out.data_ptr(), n_tiles,
+                 tile_w, stream) == 0, "lanes_vote_packed4 launch")
+
+    ms = cuda_ms(run, TIMED_LAUNCHES)
+    plain = cuda_ms(lambda: vote_lanes.lanes_counts_plain(
+        vb, bt, n_tiles, r_sub, tile_w), 3)
+    keys = lanes_keys(vb, bt, n_tiles, r_sub, tile_w, "packed4")
+    lib = cuda_ms(lambda: torch.bincount(keys, minlength=8 * n_tiles
+                                         * tile_w), 3)
+    n_bytes = vb.numel() * 4 + bt.numel() * 4 + 8 * n_tiles * tile_w * 4
+    return ms, plain, lib, int(keys.numel()), n_bytes
+
+
+def phase_sharded_pod(ctx, cases, host_runs):
+    """Phase 13: --backend sharded on grids of cuda:0, two gloo ranks
+    with device votes, and batch --shard-across-hosts.  Returns kernel
+    A's timing on the uncapped 1x1 E. coli mesh pack."""
+    from polypolish_tpu_torch.ops.vote_lanes import R_SUB, TILE_W
+    from polypolish_tpu_torch.parallel import make_mesh
+    from polypolish_tpu_torch.utils.profiling import StageTimer
+
+    t0 = time.monotonic()
+    dev = ctx["dev"]
+    uncapped = None
+    for case, grid in (("ecoli50x", (1, 1)), ("ecoli50x", (2, 2)),
+                       ("repeats", (2, 1)), ("repeats", (1, 2))):
+        label = f"sharded {case} {grid[0]}x{grid[1]}"
+        n_cells = grid[0] * grid[1]
+        mesh = make_mesh(*grid, devices=[dev] * n_cells)
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with capture_calls(lanes_counts=True, chunk_counts=True) as calls:
+            fasta_out, err, total, counts, timer = polish_run(
+                ctx, *cases[case], StageTimer(sync_device=dev),
+                backend="sharded", mesh=mesh, kernel_variant="lanes")
+        peak = torch.cuda.max_memory_allocated()
+        check(fasta_out == host_runs[case][0], f"{label}: FASTA != host")
+        check(err == host_runs[case][1], f"{label}: stderr != host")
+        want = {k: 0 for k in ctx["lanes"]}
+        want.update(lanes_vote_packed4=n_cells, chunk_vote=0)
+        check(counts == want, f"{label}: launches {counts}, want {want}")
+        cells = calls["lanes_counts"]
+        check(len(cells) == n_cells and not calls["chunk_counts"],
+              f"{label}: {len(cells)} kernel A calls captured")
+        pack_bytes = sum(a[0].numel() * 4 + a[1].numel() * 4 for a in cells)
+        deepest = max(last_block(a[0], R_SUB // 4) for a in cells)
+        print(f"{label}: total {total:.3f} s | {fmt_stages(timer.seconds)} "
+              f"| launches {counts} | mesh pack {pack_bytes} B, "
+              f"{cells[0][1].numel()} blocks per cell (deepest cell's last "
+              f"voting block {deepest}), {cells[0][2]} tiles per cell | "
+              f"peak device memory {peak} B, {peak - held} B above the "
+              f"{held} B held")
+        check_captured(ctx, label, calls)
+        if uncapped is None:
+            uncapped = time_kernel_a(*cells[0][:3], R_SUB, TILE_W)
+            ms, plain, lib, votes, n_bytes = uncapped
+            b_ms, b_by = bound(n_bytes, votes)
+            print(f"lanes_vote_packed4 on the {label} mesh pack (no cap): "
+                  f"{ms:.4f} ms for {votes} votes, {n_bytes} B; plain "
+                  f"{plain:.3f} ms; torch.bincount {lib:.3f} ms; bound "
+                  f"{b_ms:.4f} ms ({b_by}, {b_ms / ms:.1%} of it)")
+        del calls, cells
+    print(f"sharded: FASTA and stderr == host on every grid")
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")  # the ranks share a host
+    fasta, sams = cases["ecoli50x"]
+    port = free_port()
+    t1 = time.monotonic()
+    ranks = run_ranks(
+        [["polish", "--distributed", "--coordinator", f"127.0.0.1:{port}",
+          "--num-processes", "2", "--process-id", str(r), "--device",
+          dev.type, fasta, *sams]
+         for r in range(2)],
+        [dict(env, POLYPOLISH_TPU_POD_DEVICE_VOTES="1")] * 2)
+    total = time.monotonic() - t1
+    check(ranks[0][0] == host_runs["ecoli50x"][0],
+          "pod rank 0: FASTA != host FASTA")
+    check(ranks[1][0] == "", "pod rank 1 wrote to stdout")
+    err0 = re.sub(r"Pod mode: [^\n]*\n\n", "",
+                  GLOO_LINE.sub("", ranks[0][1]))
+    check(_CLOCK.sub("", err0) == host_runs["ecoli50x"][1],
+          "pod rank 0: stderr != host stderr (but the Pod mode line)")
+    check(GLOO_LINE.sub("", ranks[1][1]) == "",
+          "pod rank 1 wrote a narrative")
+    for r, (_, _, info) in enumerate(ranks):
+        check_rank_launches(ctx, f"pod rank {r}", info)
+        print(f"pod rank {r} (device votes, cuda:0): wall {info['wall_s']:.3f}"
+              f" s | launches {info['lanes']} + chunk_vote "
+              f"{info['chunk_vote']} | packs {info['packs']}, with overflow "
+              f"{info['with_overflow']} | max abs err vs plain "
+              f"{info['max_abs_err']} | left its group")
+    print(f"pod: two gloo ranks on cuda:0, {total:.3f} s; rank 0 FASTA and "
+          f"stderr == host")
+
+    genomes = ("ecoli50x", "repeats", "repeats16")
+    jobs = [(g, os.path.join(DATA_DIR, f"hosts_{g}_{k}.fasta"))
+            for g in genomes for k in (1, 2)]
+    manifest = os.path.join(DATA_DIR, "hosts.tsv")
+    with open(manifest, "w") as f:
+        for g, out_path in jobs:
+            f.write(f"{cases[g][0]}\t{out_path}\t{','.join(cases[g][1])}\n")
+    port = free_port()
+    t1 = time.monotonic()
+    ranks = run_ranks(
+        [["batch", "--shard-across-hosts", "--backend", "device",
+          "--device", dev.type, "--workers", "1", manifest]
+         for _ in range(2)],
+        [dict(env, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+              JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(r))
+         for r in range(2)])
+    total = time.monotonic() - t1
+    for r, (_, err, info) in enumerate(ranks):
+        check(f"host {r}/2: polishing 3 of 6 genomes" in err
+              and "Genomes polished: 3/3" in err, f"batch rank {r}: {err}")
+        check(info["packs"] == 3, f"batch rank {r}: {info['packs']} packs")
+        check_rank_launches(ctx, f"batch rank {r}", info)
+        print(f"batch --shard-across-hosts rank {r}: wall "
+              f"{info['wall_s']:.3f} s | launches {info['lanes']} + "
+              f"chunk_vote {info['chunk_vote']} | max abs err vs plain "
+              f"{info['max_abs_err']}")
+    for g, out_path in jobs:
+        with open(out_path) as f:
+            check(f.read() == host_runs[g][0],
+                  f"batch --shard-across-hosts: {out_path} != host FASTA")
+        os.remove(out_path)
+    print(f"batch --shard-across-hosts: two ranks, three genomes each, "
+          f"{total:.3f} s; every output == its genome's host FASTA")
+    print(f"phase 13 (sharded, pod ranks, batch across hosts): "
+          f"{time.monotonic() - t0:.1f} s")
+    return uncapped
 
 
 if __name__ == "__main__":

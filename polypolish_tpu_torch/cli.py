@@ -6,8 +6,10 @@ subcommands:
 
   python -m polypolish_tpu_torch polish [--debug FILE] [-i 0.2] [-v 0.5]
       [-m 10] [-d 5] [--careful] [--threads N]
-      [--backend auto|device|host|xla] [--kernel-variant lanes|mxu]
+      [--backend auto|device|host|xla|sharded] [--kernel-variant lanes|mxu]
       [--pure-python] [--pod-shards N] [--device cuda|cpu]
+      [--distributed --coordinator HOST:PORT --num-processes N
+       --process-id I]
       assembly sam [sam ...]
   python -m polypolish_tpu_torch filter --in1 .. --in2 .. --out1 ..
       --out2 .. [--orientation auto] [--low 0.1] [--high 99.9]
@@ -15,21 +17,27 @@ subcommands:
   python -m polypolish_tpu_torch full --in1 .. --in2 .. [filter and
       polish options] [--keep-filtered DIR] assembly
   python -m polypolish_tpu_torch batch [polish options] [--workers N]
-      [--resume] manifest
+      [--resume] [--shard-across-hosts] manifest
 
 ``--backend auto`` (default) takes the backend that the cost model of
 utils/transport.py predicts fastest for the SAM bytes at hand ("host"
 when there is no GPU or ``--device cpu``).  ``--backend device`` counts
 votes with the port's CUDA kernels on ``--device`` (default cuda; cpu
 runs their plain PyTorch versions): the lanes vote kernel
-(``--kernel-variant lanes``, default) or the chunk vote kernel
-(``mxu``); with ``--pure-python`` the chunk vote kernel counts the
-Python reader's event stream.  ``--backend xla`` counts with a torch
-scatter-add on ``--device``; ``--backend host`` folds on the host.
-``--pod-shards N`` shards the SAM ingest over N byte ranges and folds
-on the host.  ``filter`` runs its pair grids of 1 M entries or more as
-torch ops on ``--device``; ``full`` runs ``filter`` and then ``polish``;
-``batch`` polishes the genomes of a manifest on a thread pool.
+(``--kernel-variant lanes``) or the chunk vote kernel (``mxu``);
+``--kernel-variant`` unset reads POLYPOLISH_TPU_KERNEL (else lanes), as
+the JAX CLI does.  With ``--pure-python`` the chunk vote kernel counts
+the Python reader's event stream.  ``--backend xla`` counts with a
+torch scatter-add on ``--device``; ``--backend host`` folds on the
+host; ``--backend sharded`` votes over a (data, pos) grid of
+``--device``'s visible devices (parallel/shard.py).  ``--pod-shards N``
+shards the SAM ingest over N byte ranges and folds on the host;
+``--distributed`` runs one process per ingest shard over a gloo
+process group (pipeline/pod_distributed.py).  ``filter`` runs its pair
+grids of 1 M entries or more as torch ops on ``--device``; ``full``
+runs ``filter`` and then ``polish``; ``batch`` polishes the genomes of
+a manifest on a thread pool, and with ``--shard-across-hosts`` each
+process of a process group takes its slice of the manifest.
 """
 
 from __future__ import annotations
@@ -72,6 +80,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_polish_options(p)
     _add_pod_option(p)
     _add_device_option(p)
+    _add_distributed_options(p)
     p.add_argument("assembly", help="Assembly to polish (one file in FASTA format)")
     p.add_argument(
         "sam", nargs="+", help="Short read alignments (one or more files in SAM format)"
@@ -113,6 +122,12 @@ def build_parser() -> argparse.ArgumentParser:
         "--resume", action="store_true",
         help="Skip jobs whose output already exists and is newer than "
         "its inputs",
+    )
+    b.add_argument(
+        "--shard-across-hosts", action="store_true",
+        help="Each process of a process group polishes the "
+        "jobs[rank::world] slice of the manifest (the group comes from "
+        "JAX_COORDINATOR_ADDRESS/JAX_NUM_PROCESSES/JAX_PROCESS_ID)",
     )
     return parser
 
@@ -170,16 +185,19 @@ def _add_polish_options(p: argparse.ArgumentParser,
     )
     p.add_argument(
         "--backend", default="auto",
-        choices=("auto", "device", "host", "xla"),
+        choices=("auto", "device", "host", "xla", "sharded"),
         help="Vote/consensus backend: 'auto' (default: the one the "
         "transport cost model predicts fastest), 'device' (the CUDA "
-        "kernels), 'host' (the host fold) or 'xla' (a torch scatter-add "
-        "on --device)",
+        "kernels), 'host' (the host fold), 'xla' (a torch scatter-add "
+        "on --device) or 'sharded' (a (data, pos) grid over --device's "
+        "visible devices)",
     )
     p.add_argument(
-        "--kernel-variant", default="lanes", choices=("lanes", "mxu"),
-        help="Vote kernel of --backend device: 'lanes' (the lanes vote "
-        "kernel, default) or 'mxu' (the chunk vote kernel)",
+        "--kernel-variant", default=None, choices=("lanes", "mxu"),
+        help="Vote kernel of --backend device and sharded: 'lanes' (the "
+        "lanes vote kernel) or 'mxu' (the chunk vote kernel; a scatter "
+        "per grid cell on sharded); default POLYPOLISH_TPU_KERNEL, else "
+        "lanes",
     )
     p.add_argument(
         "--pure-python", action="store_true",
@@ -193,6 +211,30 @@ def _add_pod_option(p: argparse.ArgumentParser) -> None:
         "--pod-shards", type=int, default=0,
         help="Shard the SAM ingest over N byte-range shards and fold on "
         "the host (output is bit-identical to unsharded)",
+    )
+
+
+def _add_distributed_options(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
+        "--distributed", action="store_true",
+        help="Multi-process pod polish: launch one copy of this command "
+        "per process, shard the SAM ingest across them and merge over a "
+        "gloo process group. The group comes from --coordinator/"
+        "--num-processes/--process-id or the JAX_COORDINATOR_ADDRESS/"
+        "JAX_NUM_PROCESSES/JAX_PROCESS_ID variables. Process 0 writes "
+        "the output; bit-identical to single-process polish",
+    )
+    p.add_argument(
+        "--coordinator", default=None,
+        help="Address host:port of process 0 (with --distributed)",
+    )
+    p.add_argument(
+        "--num-processes", type=int, default=None,
+        help="Total process count (with --distributed)",
+    )
+    p.add_argument(
+        "--process-id", type=int, default=None,
+        help="This process's index (with --distributed)",
     )
 
 
@@ -269,6 +311,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                 args.in1, args.in2, args.out1, args.out2,
                 args.orientation, args.low, args.high, device=args.device,
             )
+        elif args.command == "polish" and args.distributed:
+            return _polish_distributed(args)
         elif args.command == "polish" and args.pod_shards > 1:
             from polypolish_tpu_torch.pipeline.pod import (
                 polish_pod,
@@ -302,6 +346,12 @@ def main(argv: Optional[List[str]] = None) -> int:
             )
 
             jobs = parse_manifest(args.manifest)
+            if args.shard_across_hosts:
+                from polypolish_tpu_torch.parallel.multihost import (
+                    initialize_distributed,
+                )
+
+                initialize_distributed()
             results = polish_batch(
                 jobs,
                 fraction_invalid=args.fraction_invalid,
@@ -316,6 +366,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                 use_native=not args.pure_python, workers=args.workers,
                 resume=args.resume, n_threads=args.threads,
                 device=args.device, kernel_variant=args.kernel_variant,
+                shard_across_hosts=args.shard_across_hosts,
             )
             if any("error" in r for r in results):
                 return 1
@@ -338,6 +389,47 @@ def main(argv: Optional[List[str]] = None) -> int:
             )
     except PolypolishError as e:
         render_error_and_exit(e)
+    finally:
+        from polypolish_tpu_torch.parallel.multihost import (
+            shutdown_distributed,
+        )
+
+        shutdown_distributed()
+    return 0
+
+
+def _polish_distributed(args) -> int:
+    """polish --distributed: join the process group, then the pod polish
+    of pipeline/pod_distributed.py; rank 0 writes the FASTA.  gloo's
+    native layers write to fd 1, so the FASTA goes to a duplicate of the
+    real stdout and fd 1 points at stderr before the group starts.  The
+    refusal without a coordinator is the JAX CLI's, word for word."""
+    from polypolish_tpu_torch.errors import quit_with_error
+    from polypolish_tpu_torch.parallel.multihost import initialize_distributed
+    from polypolish_tpu_torch.pipeline.pod_distributed import (
+        polish_pod_distributed,
+    )
+
+    sys.stdout.flush()
+    fasta_out = os.fdopen(os.dup(1), "w")
+    os.dup2(2, 1)
+    try:
+        if not initialize_distributed(args.coordinator, args.num_processes,
+                                      args.process_id):
+            quit_with_error(
+                "--distributed requires a coordinator: pass "
+                "--coordinator/--num-processes/--process-id, set "
+                "JAX_COORDINATOR_ADDRESS/JAX_NUM_PROCESSES/"
+                "JAX_PROCESS_ID, or run under a TPU pod runtime"
+            )
+        polish_pod_distributed(
+            args.debug, args.fraction_invalid, args.fraction_valid,
+            args.max_errors, args.min_depth, args.careful,
+            args.assembly, args.sam, out=fasta_out,
+            n_threads=args.threads, device=args.device,
+        )
+    finally:
+        fasta_out.close()
     return 0
 
 

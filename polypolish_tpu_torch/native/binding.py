@@ -3,9 +3,10 @@
 The subset of the JAX package's binding that the ``polish`` and
 ``filter`` subcommands call, over the port's own copy of its C++ engine
 (sam_packer.cc, verbatim): the run parse, the fold / window fold /
-sparse / chunks / lanes views, the chunk packer, the host consensus,
-the sequential f64 sums, the --debug TSV writer, and the filter's pair
-quick-parse and verdict rewrite.  native/loader.py builds the library.
+sparse / chunks / lanes / lanes-mesh views, the chunk packer, the host
+consensus, the sequential f64 sums, the --debug TSV writer, and the
+filter's pair quick-parse and verdict rewrite.  native/loader.py builds
+the library.
 """
 
 from __future__ import annotations
@@ -131,6 +132,18 @@ class _PPLanesView(ctypes.Structure):
         ("ov_pos", ctypes.POINTER(ctypes.c_int32)),
         ("ov_vid", ctypes.POINTER(ctypes.c_uint8)),
         ("n_overflow", ctypes.c_int64),
+        ("handle", ctypes.c_void_p),
+    ]
+
+
+class _PPLanesMeshView(ctypes.Structure):
+    _fields_ = [
+        ("vb", ctypes.POINTER(ctypes.c_uint8)),
+        ("block_tile", ctypes.POINTER(ctypes.c_int32)),
+        ("n_blocks", ctypes.c_int64),
+        ("n_tiles", ctypes.c_int64),
+        ("p_shard", ctypes.c_int64),
+        ("n_events", ctypes.c_int64),
         ("handle", ctypes.c_void_p),
     ]
 
@@ -271,6 +284,20 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.pp_free_lanes.argtypes = [P(_PPLanesView)]
     lib.pp_free_lanes.restype = None
+    lib.pp_lanes_mesh.restype = P(_PPLanesMeshView)
+    lib.pp_lanes_mesh.argtypes = [
+        P(_PPRunsView),
+        i32,                                # contig id
+        i64,                                # P
+        i32,                                # r_sub
+        i32,                                # tile_w
+        i32,                                # n_data
+        i32,                                # n_pos
+        i32,                                # n_threads
+        i32,                                # layout (0 rows, 1 packed4)
+    ]
+    lib.pp_free_lanes_mesh.argtypes = [P(_PPLanesMeshView)]
+    lib.pp_free_lanes_mesh.restype = None
     lib.pp_depth_fold.restype = None
     lib.pp_depth_fold.argtypes = [
         P(i32),                             # run_contig

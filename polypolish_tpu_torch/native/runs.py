@@ -265,6 +265,46 @@ class ParsedRuns:
             return None
         return LanesPack(self._lib, lv, r_sub, tile_w, packed4=packed4)
 
+    def lanes_mesh(self, contig_name: str, n_data: int, n_pos: int,
+                   r_sub: int, tile_w: int, n_threads: int = 0,
+                   num_positions: Optional[int] = None,
+                   packed4: bool = False):
+        """One-call lane packs for every cell of a (data, pos) grid
+        (pp_lanes_mesh): position shards of p_shard positions (a
+        multiple of tile_w), runs split round-robin over the data axis,
+        no row cap, every shard padded to one block count B.  Returns
+        (vb (D, S, B*r_sub, tile_w) uint8 copy, or packed4 int32
+        (D, S, B*r_sub//4, tile_w), block_tile (D, S, B) int32 copy,
+        p_shard, n_tiles), or None on bad arguments or a failed
+        allocation."""
+        cid = self.contig_names.index(contig_name)
+        P = num_positions if num_positions is not None \
+            else self.contig_lens[contig_name]
+        mv = self._lib.pp_lanes_mesh(
+            self._view, cid, P, r_sub, tile_w, n_data, n_pos, n_threads,
+            1 if packed4 else 0,
+        )
+        try:
+            c = mv.contents
+            if int(c.n_tiles) == 0 or not c.vb:
+                return None
+            B = int(c.n_blocks)
+            vb = _as_np(
+                c.vb, n_data * n_pos * B * r_sub * tile_w, np.uint8
+            ).copy()
+            if packed4:
+                vb = vb.view(np.int32).reshape(
+                    n_data, n_pos, B * (r_sub // 4), tile_w
+                )
+            else:
+                vb = vb.reshape(n_data, n_pos, B * r_sub, tile_w)
+            bt = _as_np(
+                c.block_tile, n_data * n_pos * B, np.int32
+            ).copy().reshape(n_data, n_pos, B)
+            return vb, bt, int(c.p_shard), int(c.n_tiles)
+        finally:
+            self._lib.pp_free_lanes_mesh(mv)
+
     # -- raw access ----------------------------------------------------
     def raw(self):
         """Zero-copy numpy views of the run arrays (valid until close):

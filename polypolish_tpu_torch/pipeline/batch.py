@@ -56,7 +56,8 @@ def polish_batch(
     resume: bool = False,
     n_threads: Optional[int] = None,
     device="cuda",
-    kernel_variant: str = "lanes",
+    kernel_variant: Optional[str] = None,
+    shard_across_hosts: bool = False,
 ) -> List[Dict]:
     """Polish every (assembly, out_path, sams) job; returns per-genome
     summaries [{'assembly', 'out', 'lengths' | 'error' | 'skipped'}].
@@ -65,10 +66,31 @@ def polish_batch(
 
     With resume=True, jobs whose output already exists and is newer than
     all of its inputs are skipped (per-genome checkpointing; the
-    reference has no resume, SURVEY.md section 5)."""
+    reference has no resume, SURVEY.md section 5).
+
+    With shard_across_hosts=True each process of the process group
+    (parallel.multihost.initialize_distributed, called first) takes the
+    round-robin slice ``jobs[rank::world]``: genomes are independent, so
+    job-level data parallelism across processes needs no collective.
+    Without a group the one process takes every job."""
     from polypolish_tpu_torch.pipeline.polish import polish
 
     start = time.monotonic()
+    total_jobs = len(jobs)
+    if shard_across_hosts:
+        from polypolish_tpu_torch.parallel.multihost import (
+            process_count,
+            process_index,
+        )
+
+        pidx, pcount = process_index(), process_count()
+        jobs = list(jobs)[pidx::pcount]
+        log.eprint(
+            f"host {pidx}/{pcount}: polishing {len(jobs)} of "
+            f"{total_jobs} genomes"
+        )
+        if not jobs:
+            return []
     if workers is None:
         workers = min(8, os.cpu_count() or 1, max(1, len(jobs)))
 

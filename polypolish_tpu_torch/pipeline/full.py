@@ -33,7 +33,7 @@ def polish_paired(
     n_threads: Optional[int] = None,
     pod_shards: int = 0,
     keep_filtered: Optional[str] = None,
-    kernel_variant: str = "lanes",
+    kernel_variant: Optional[str] = None,
     device="cuda",
 ) -> List[Tuple[str, int]]:
     """Filter the pair, then polish with the filtered alignments.

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import sys
 import time
-from typing import Dict, List, Optional, TextIO, Tuple
+from typing import List, Optional, TextIO, Tuple
 
 import numpy as np
 
@@ -67,72 +67,46 @@ def polish_pod(
     start_time = time.monotonic()
     if out is None:
         out = sys.stdout
-    check_option_values(fraction_invalid, fraction_valid)
-    check_inputs_exist(assembly, sam)
-    starting_message(
+    seq_names, contigs, contig_names, contig_lens = start_pod(
         debug, fraction_invalid, fraction_valid, max_errors, min_depth,
         careful, assembly, sam,
     )
-
-    seq_names, contigs = load_assembly(assembly)
-    contig_names = list(contigs)
-    contig_lens = {n: c.length for n, c in contigs.items()}
-
-    log.section_header("Loading alignments")
     shards, shard_vocabs = parse_pod_shards(
         sam, contig_names, contig_lens, max_errors, careful, n_procs,
         n_threads,
     )
     vocab, remaps = merge_vocabs(shard_vocabs)
-
-    # merged per-file stats; the whole-file zero-alignment fatal was
-    # deferred by the shard parses (a RANGE may be empty)
-    stats_list = []
-    for f, s_path in enumerate(sam):
-        a = sum(sh.file_stats[f][0] for sh in shards)
-        u = sum(sh.file_stats[f][1] for sh in shards)
-        r = sum(sh.file_stats[f][2] for sh in shards)
-        if a == 0:
-            quit_with_error(f'no alignments in "{s_path}"')
-        stats_list.append((a, u, r))
-    _report_alignment_stats(sam, stats_list, careful)
+    # the whole-file zero-alignment fatal was deferred by the shard
+    # parses (a RANGE may be empty)
+    report_file_stats(sam, [sh.file_stats for sh in shards], careful)
     log.eprint(
         f"Pod mode: SAM ingest sharded over {n_procs} byte-range shards"
     )
     log.eprint()
 
-    headers = gather_headers(shards, len(sam))
-
-    log.section_header("Polishing assembly sequences")
-    log.explanation(
-        "For each position in the assembly, Polypolish determines the read "
-        "depth at that position and collects all aligned bases. It then "
-        "polishes the assembly by looking for positions where the pileup "
-        "unambiguously supports a different sequence than the assembly."
-    )
+    headers = gather_headers([sh.raw()[:4] for sh in shards],
+                             [sh.file_runs for sh in shards], len(sam))
+    polishing_header()
     debug_file = _create_debug_file(debug)
     new_lengths = []
     try:
         for name, description in seq_names:
-            seq = contigs[name].seq
-            log.eprint(f"Polishing {name} ({log.thousands(len(seq))} bp):")
-            counts, depth, sparse = merge_contig(
-                shards, remaps, headers, name, contig_names,
-                contig_lens[name],
-            )
-            valid_thr, invalid_thr, low_depth = compute_thresholds(
-                depth, min_depth, fraction_valid, fraction_invalid
-            )
-            orig_id = _orig_ids_for_seq(seq, vocab)
-            new_id, status = consensus_dense_numpy(
-                counts, valid_thr, invalid_thr, low_depth, orig_id
-            )
-            new_length = finish_sequence(
-                name, description, seq, counts, depth, sparse,
-                valid_thr, invalid_thr, new_id, status, orig_id,
-                min_depth, vocab, out, debug_file,
-            )
-            new_lengths.append((name, new_length))
+            log.eprint(f"Polishing {name} "
+                       f"({log.thousands(contig_lens[name])} bp):")
+            counts = np.zeros((DENSE_V, contig_lens[name]), dtype=np.int32)
+            keys, cnts = [], []
+            for sh, remap in zip(shards, remaps):
+                c, _d, sparse = sh.fold(name)
+                counts += c
+                k, n = sparse_keys(sparse, sh.base_vocab_len, remap)
+                keys.append(k)
+                cnts.append(n)
+            new_lengths.append((name, finish_contig(
+                name, description, contigs[name].seq, counts,
+                merge_sparse(keys, cnts), headers, contig_names.index(name),
+                vocab, min_depth, fraction_valid, fraction_invalid, out,
+                debug_file,
+            )))
     finally:
         if debug_file is not None:
             debug_file.close()
@@ -192,56 +166,111 @@ def merge_vocabs(shard_vocabs: List[Vocab]):
     return vocab, remaps
 
 
-def gather_headers(shards, n_files: int):
-    """Run headers concatenated in reference order: file-major, shard
-    ranges ascending within each file (16 bytes per alignment: what a
-    multi-process pod gathers)."""
-    per_shard = []
-    for sh in shards:
-        rc, rs, rl, rk, _vb, _oi, _ov, _poff = sh.raw()
-        bounds = np.concatenate(([0], np.cumsum(sh.file_runs)))
-        per_shard.append((rc, rs, rl, rk, bounds))
-    cols = [[], [], [], []]
-    for f in range(n_files):
-        for rc, rs, rl, rk, bounds in per_shard:
-            lo, hi = int(bounds[f]), int(bounds[f + 1])
-            for c, arr in zip(cols, (rc, rs, rl, rk)):
-                c.append(arr[lo:hi])
-    return tuple(
-        np.ascontiguousarray(np.concatenate(c), dtype=np.int32)
-        for c in cols
+def start_pod(debug, fraction_invalid, fraction_valid, max_errors,
+              min_depth, careful, assembly, sam):
+    """Option and input checks, the starting narrative and the assembly,
+    up to the "Loading alignments" header: (seq_names, contigs, contig
+    names, {name: length})."""
+    check_option_values(fraction_invalid, fraction_valid)
+    check_inputs_exist(assembly, sam)
+    starting_message(
+        debug, fraction_invalid, fraction_valid, max_errors, min_depth,
+        careful, assembly, sam,
+    )
+    seq_names, contigs = load_assembly(assembly)
+    contig_lens = {n: c.length for n, c in contigs.items()}
+    log.section_header("Loading alignments")
+    return seq_names, contigs, list(contigs), contig_lens
+
+
+def report_file_stats(sam, per_shard_stats, careful: bool) -> None:
+    """Sum each file's (alignments, ...) stats over the shards, each an
+    (n files, 3) sequence; quit on a file with no alignment at all,
+    else report them."""
+    total = np.zeros((len(sam), 3), dtype=np.int64)
+    for st in per_shard_stats:
+        total += np.asarray(st, dtype=np.int64).reshape(len(sam), 3)
+    for f, s_path in enumerate(sam):
+        if total[f, 0] == 0:
+            quit_with_error(f'no alignments in "{s_path}"')
+    _report_alignment_stats(
+        sam, [tuple(int(x) for x in row) for row in total], careful)
+
+
+def polishing_header() -> None:
+    log.section_header("Polishing assembly sequences")
+    log.explanation(
+        "For each position in the assembly, Polypolish determines the read "
+        "depth at that position and collects all aligned bases. It then "
+        "polishes the assembly by looking for positions where the pileup "
+        "unambiguously supports a different sequence than the assembly."
     )
 
 
-def merge_contig(shards, remaps, headers, name, contig_names, P):
-    """Merged (counts, depth, sparse) for one contig: integer sums over
-    shard folds + the exact header-replay depth."""
+def gather_headers(cols, file_runs, n_files: int):
+    """Run headers concatenated in reference order: file-major, shard
+    ranges ascending within each file (16 bytes per alignment: what a
+    multi-process pod gathers).  ``cols`` holds each shard's (rc, rs,
+    rl, rk) run columns, ``file_runs`` its runs per file."""
+    per_shard = [(*c, np.concatenate(([0], np.cumsum(fr))))
+                 for c, fr in zip(cols, file_runs)]
+    out = [[], [], [], []]
+    for f in range(n_files):
+        for rc, rs, rl, rk, bounds in per_shard:
+            lo, hi = int(bounds[f]), int(bounds[f + 1])
+            for c, arr in zip(out, (rc, rs, rl, rk)):
+                c.append(arr[lo:hi])
+    return tuple(
+        np.ascontiguousarray(np.concatenate(c), dtype=np.int32)
+        for c in out
+    )
+
+
+def sparse_keys(sparse, base_vocab_len: int, remap):
+    """A shard's sparse-tier (pos, local id, count) triples as (key,
+    count) int64 arrays, key = pos * 2^31 + merged vocab id."""
+    sp, sv, sc = sparse
+    sv = sv.astype(np.int64)
+    high = sv >= base_vocab_len
+    if high.any():
+        sv[high] = remap[sv[high] - base_vocab_len]
+    return (sp.astype(np.int64) * (2 ** 31) + sv, sc.astype(np.int64))
+
+
+def merge_sparse(keys, counts):
+    """The shards' (key, count) arrays summed per key: sparse-tier
+    (pos, id, count) int64 triples in (pos, id) order."""
+    all_keys = np.concatenate(keys)
+    if not all_keys.size:
+        e = np.empty(0, dtype=np.int64)
+        return e, e, e
+    uk, inv = np.unique(all_keys, return_inverse=True)
+    cnt = np.zeros(uk.shape[0], dtype=np.int64)
+    np.add.at(cnt, inv, np.concatenate(counts))
+    return uk // (2 ** 31), uk % (2 ** 31), cnt
+
+
+def finish_contig(name, description, seq, counts, sparse, headers,
+                  contig_idx, vocab, min_depth, fraction_valid,
+                  fraction_invalid, out, debug_file) -> int:
+    """One contig from its merged counts and sparse tier (its
+    "Polishing" line already written): the exact
+    depth (pp_depth_fold replays the gathered headers in reference
+    order), thresholds, consensus and the output.  Returns the new
+    length."""
     from polypolish_tpu_torch.native import binding
 
-    counts = np.zeros((DENSE_V, P), dtype=np.int32)
-    sparse_acc: Dict[int, int] = {}
-    for sh, remap in zip(shards, remaps):
-        c, _d, (sp, sv, sc) = sh.fold(name)
-        counts += c
-        if sp.size:
-            sv = sv.astype(np.int64)
-            high = sv >= sh.base_vocab_len
-            if high.any():
-                sv = sv.copy()
-                sv[high] = remap[sv[high] - sh.base_vocab_len]
-            for p, v, cnt in zip(sp.tolist(), sv.tolist(), sc.tolist()):
-                key = p * (2**31) + v
-                sparse_acc[key] = sparse_acc.get(key, 0) + cnt
-    if sparse_acc:
-        keys = np.asarray(sorted(sparse_acc), dtype=np.int64)
-        sparse = (
-            keys // (2**31), keys % (2**31),
-            np.asarray([sparse_acc[int(k)] for k in keys], dtype=np.int64),
-        )
-    else:
-        e = np.empty(0, dtype=np.int64)
-        sparse = (e, e, e)
-
-    rc, rs, rl, rk = headers
-    depth = binding.depth_fold(rc, rs, rl, rk, contig_names.index(name), P)
-    return counts, depth, sparse
+    P = counts.shape[1]
+    depth = binding.depth_fold(*headers, contig_idx, P)
+    valid_thr, invalid_thr, low_depth = compute_thresholds(
+        depth, min_depth, fraction_valid, fraction_invalid
+    )
+    orig_id = _orig_ids_for_seq(seq, vocab)
+    new_id, status = consensus_dense_numpy(
+        counts, valid_thr, invalid_thr, low_depth, orig_id
+    )
+    return finish_sequence(
+        name, description, seq, counts, depth, sparse, valid_thr,
+        invalid_thr, new_id, status, orig_id, min_depth, vocab, out,
+        debug_file,
+    )

@@ -7,7 +7,7 @@ pure-Python reader of ``--pure-python``), then per contig compute the
 votes and the consensus and emit the polished FASTA to stdout (stats to
 stderr, optional per-base debug TSV).
 
-Three backends (the JAX package's ``pallas`` is the port's
+Four backends (the JAX package's ``pallas`` is the port's
 ``device``):
 
 - ``device`` (default): f64 depth and thresholds folded in C++ on the
@@ -23,13 +23,24 @@ Three backends (the JAX package's ``pallas`` is the port's
   the JAX package leaves it to XLA).
 - ``host``: the C++ fold of the (8, P) counts plus the C++ consensus —
   an independent reference for the device paths, never a fallback.
+- ``sharded``: votes and consensus over a (data, pos) grid of devices
+  (``mesh``, parallel/shard.py): variant "lanes" packs one uncapped lane
+  pack per grid cell in C++ (``ParsedRuns.lanes_mesh``) and counts each
+  with the lanes vote kernel on the cell's device; "mxu" scatter-adds
+  each cell's events; the counts sum over the data axis and the
+  consensus runs per position shard.  Never windowed.
+
+``kernel_variant`` None takes POLYPOLISH_TPU_KERNEL ("lanes" or "mxu";
+unset or anything else reads "lanes"), as the JAX package does.
 
 The pure-Python reader fills each contig's event stream (``ops/pack.py``)
 instead of the native runs; its backends are the JAX package's event
 branches: ``host`` counts with numpy, ``device`` packs the events into
 chunks (``PolisherModel.pack``) and counts the whole pileup with the
-chunk vote kernel, whatever ``kernel_variant`` says, and ``xla`` counts
-with a torch scatter-add.  Depth and thresholds stay on the host.
+chunk vote kernel, whatever ``kernel_variant`` says, ``xla`` counts
+with a torch scatter-add, and ``sharded`` routes the events to the grid
+(the numpy mesh packer and the lanes vote kernel per cell, or a scatter
+per cell for "mxu").  Depth and thresholds stay on the host.
 
 Contigs of POLYPOLISH_TPU_WINDOW_MIN positions or more (32,000,000 by
 default; 0 disables) take the windowed path on backends ``host`` and
@@ -73,7 +84,7 @@ from polypolish_tpu_torch.utils.profiling import StageTimer, maybe_trace, phase
 from polypolish_tpu_torch.utils.timing import format_duration
 from polypolish_tpu_torch.vocab import DENSE_V, Vocab
 
-BACKENDS = ("device", "host", "xla")
+BACKENDS = ("device", "host", "xla", "sharded")
 KERNEL_VARIANTS = ("lanes", "mxu")
 
 
@@ -114,27 +125,37 @@ def polish(
     n_threads: Optional[int] = None,
     device="cuda",
     timer: Optional[StageTimer] = None,
-    kernel_variant: str = "lanes",
+    kernel_variant: Optional[str] = None,
     use_native: bool = True,
+    mesh=None,
 ) -> List[Tuple[str, int]]:
     """Run the full polish workflow; returns [(name, new_length)].
 
-    ``kernel_variant`` ("lanes" or "mxu") picks the vote kernel of
-    backend "device" (the JAX package's POLYPOLISH_TPU_KERNEL) on the
-    native path.  ``use_native=False`` reads the SAM files with the
-    pure-Python reader (``--pure-python``).
+    ``kernel_variant`` ("lanes" or "mxu"; None reads
+    POLYPOLISH_TPU_KERNEL) picks the vote kernel of backend "device" on
+    the native path and the step of backend "sharded".  ``mesh`` is the
+    (data, pos) grid of backend "sharded" (parallel.make_mesh); None
+    spans ``device``'s visible devices: every visible card for "cuda",
+    one cell for "cpu".  ``use_native=False`` reads the SAM files with
+    the pure-Python reader (``--pure-python``).
     ``timer`` (optional) collects wall seconds per stage: parse, fold,
-    pack, upload, kernel_a, kernel_b, scatter, consensus, gather (the
-    windowed device path's sparse columns), fetch, finish."""
+    pack, upload, kernel_a, kernel_b, scatter, data_sum (backend
+    sharded), consensus, fetch, finish."""
     start_time = time.monotonic()
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}; got "
                          f"{backend!r}")
+    if kernel_variant is None:
+        kernel_variant = kernel_variant_env()
     if kernel_variant not in KERNEL_VARIANTS:
         raise ValueError(f"kernel_variant must be one of "
                          f"{KERNEL_VARIANTS}; got {kernel_variant!r}")
     # the host backend runs no torch code, so it needs no device
     dev = resolve_device(device) if backend != "host" else None
+    if backend == "sharded" and mesh is None:
+        from polypolish_tpu_torch.parallel.multihost import global_mesh
+
+        mesh = global_mesh(device=dev)
     if timer is None:
         timer = StageTimer()
     if out is None:
@@ -161,13 +182,20 @@ def polish(
             new_lengths = polish_sequences(
                 debug, fraction_invalid, fraction_valid, min_depth,
                 seq_names, votes, vocab, out, backend, runs_handle, dev,
-                timer, kernel_variant,
+                timer, kernel_variant, mesh,
             )
     finally:
         if runs_handle is not None:
             runs_handle.close()
     finished_message(debug, new_lengths, start_time)
     return new_lengths
+
+
+def kernel_variant_env() -> str:
+    """The vote-kernel variant of the JAX package's kernel_variant():
+    POLYPOLISH_TPU_KERNEL when it is "lanes" or "mxu", else "lanes"."""
+    v = os.environ.get("POLYPOLISH_TPU_KERNEL", "lanes")
+    return v if v in KERNEL_VARIANTS else "lanes"
 
 
 def check_option_values(fraction_invalid: float, fraction_valid: float) -> None:
@@ -316,10 +344,11 @@ def polish_sequences(
     debug, fraction_invalid, fraction_valid, min_depth,
     seq_names, votes, vocab, out: TextIO, backend: str,
     runs_handle, device: torch.device, timer: StageTimer, variant: str,
+    mesh=None,
 ) -> List[Tuple[str, int]]:
     """Reference: polish.rs:137-154.  ``runs_handle`` None takes each
     contig's event stream (``contig.finalize()``) instead of the native
-    runs."""
+    runs; ``mesh`` is backend sharded's grid."""
     log.section_header("Polishing assembly sequences")
     log.explanation(
         "For each position in the assembly, Polypolish determines the read "
@@ -335,7 +364,7 @@ def polish_sequences(
             new_length = polish_one_sequence(
                 fraction_invalid, fraction_valid, min_depth,
                 name, description, contig, vocab, out, backend, debug_file,
-                runs_handle, device, timer, variant,
+                runs_handle, device, timer, variant, mesh,
             )
             new_lengths.append((name, new_length))
     finally:
@@ -372,9 +401,11 @@ def polish_one_sequence(
     fraction_invalid, fraction_valid, min_depth,
     name, description, contig, vocab, out: TextIO, backend: str, debug_file,
     runs_handle, device: torch.device, timer: StageTimer, variant: str,
+    mesh=None,
 ) -> int:
     """Reference: polish.rs:157-193 (vectorised).  ``variant`` is
-    backend device's vote kernel on the native runs: "lanes" or "mxu"."""
+    backend device's vote kernel on the native runs and backend
+    sharded's step: "lanes" or "mxu"."""
     seq_len = contig.length
     log.eprint(f"Polishing {name} ({log.thousands(seq_len)} bp):")
 
@@ -413,7 +444,7 @@ def polish_one_sequence(
         (counts, new_id, status, depth, sparse,
          valid_thr, invalid_thr) = _polish_device(
             pos, vid, weight, seq_len, orig_id, thresholds, device, timer,
-            backend,
+            backend, variant, mesh,
         )
     elif backend == "host":
         with timer.stage("fold"):
@@ -429,7 +460,7 @@ def polish_one_sequence(
         (counts, new_id, status, depth, sparse,
          valid_thr, invalid_thr) = _polish_device_runs(
             runs_handle, name, seq_len, orig_id, thresholds, device, timer,
-            backend, variant,
+            backend, variant, mesh,
         )
 
     with timer.stage("finish"):
@@ -698,9 +729,41 @@ def _pad_bucket(n: int, granularity_bits: int = 3, minimum: int = 4096) -> int:
     return geom_pad(n, bits=granularity_bits, minimum=minimum)
 
 
+def _polish_sharded_lanes(runs_handle, mesh, name, seq_len, thr, orig_id,
+                          timer):
+    """Backend sharded, variant lanes, on the native runs: one C++ call
+    packs every grid cell's lane blocks (``lanes_mesh``, packed4, over
+    the geometric position bucket), then kernel A per cell, the
+    data-axis sum and the consensus per position shard
+    (``sharded_step_lanes``).  Returns (counts (8, seq_len) tensor,
+    new_id, status).  The JAX package's _polish_sharded_lanes; where it
+    falls back to the scatter step (no pack), this raises."""
+    from polypolish_tpu_torch.parallel.shard import sharded_step_lanes
+
+    n_data, n_pos = mesh.shape
+    p_pad = _pad_bucket(seq_len)
+    with timer.stage("pack"):
+        packed = runs_handle.lanes_mesh(
+            name, n_data, n_pos, R_SUB, TILE_W,
+            n_threads=binding.default_threads(), num_positions=p_pad,
+            packed4=True,
+        )
+    if packed is None:
+        raise RuntimeError(
+            f"the native mesh packer returned no pack for {name} "
+            f"({p_pad} positions, {n_data}x{n_pos} grid): bad arguments "
+            f"or out of memory"
+        )
+    vb, bt, p_shard, n_tiles = packed
+    counts, new_id, status = sharded_step_lanes(
+        mesh, vb, bt, p_shard, n_tiles, *thr, orig_id, timer=timer,
+    )
+    return counts[:, :seq_len], new_id[:seq_len], status[:seq_len]
+
+
 def _polish_device_runs(
     runs_handle, name, seq_len, orig_id, thresholds, device, timer,
-    backend, variant,
+    backend, variant, mesh=None,
 ):
     """Device paths fed by the native run pipeline: depth and thresholds
     folded in C++ (sequential-exact f64), sparse tier from the overflow
@@ -708,9 +771,11 @@ def _polish_device_runs(
     lane pack (backend device, variant lanes: the lanes branch of the
     JAX package's _polish_device_runs), or from the native uint8 chunk
     layout through ``PolisherModel`` (variant mxu on the chunk vote
-    kernel; backend xla on a torch scatter-add).  Returns (counts
-    (8, seq_len) tensor, new_id, status, depth, sparse, valid_thr,
-    invalid_thr)."""
+    kernel; backend xla on a torch scatter-add), or over ``mesh``
+    (backend sharded: the mesh pack and kernel A per cell for variant
+    lanes, each cell's events scatter-added for mxu).  Returns (counts
+    (8, seq_len) tensor or numpy array, new_id, status, depth, sparse,
+    valid_thr, invalid_thr)."""
     from polypolish_tpu_torch.models.polisher import LanesPolisher
 
     with timer.stage("fold"):
@@ -719,6 +784,21 @@ def _polish_device_runs(
         )
         valid_thr, invalid_thr, low_depth = thr
         sparse = runs_handle.sparse(name)
+
+    if backend == "sharded":
+        if variant == "lanes":
+            counts, new_id, status = _polish_sharded_lanes(
+                runs_handle, mesh, name, seq_len, thr, orig_id, timer)
+        else:
+            from polypolish_tpu_torch.parallel.shard import (
+                sharded_vote_consensus,
+            )
+
+            with timer.stage("pack"):
+                pos, vid, _w = runs_handle.events(name)
+            counts, new_id, status = sharded_vote_consensus(
+                mesh, pos, vid, seq_len, *thr, orig_id, timer=timer)
+        return counts, new_id, status, depth, sparse, valid_thr, invalid_thr
 
     p_pad = _pad_bucket(seq_len)
     i32max = np.int32(2**31 - 1)
@@ -801,15 +881,17 @@ def _vote_chunks_runs(runs_handle, name, seq_len, p_pad, thr_args, device,
 
 
 def _polish_device(pos, vid, weight, seq_len, orig_id, thresholds, device,
-                   timer, backend):
+                   timer, backend, variant="lanes", mesh=None):
     """The device backends of the event stream (the JAX package's
     _polish_device): f64 depth, sparse tier and thresholds on the host
     (numpy), then the dense votes and the consensus on ``device`` over a
     geometric position bucket (pad positions: low_depth, thresholds
     INT32_MAX, orig_id 0, so they keep).  Backend "device" packs the
     events into chunks (``PolisherModel.pack``) and counts them with the
-    chunk vote kernel; "xla" counts with a torch scatter-add.  Returns
-    (counts (8, seq_len) tensor, new_id, status, depth, sparse,
+    chunk vote kernel; "xla" counts with a torch scatter-add; "sharded"
+    votes over ``mesh``: the numpy mesh pack and kernel A per cell
+    (variant lanes) or a scatter per cell (mxu).  Returns (counts
+    (8, seq_len) tensor or numpy array, new_id, status, depth, sparse,
     valid_thr, invalid_thr)."""
     from polypolish_tpu_torch.models.polisher import PolisherModel
     from polypolish_tpu_torch.ops.vote import (
@@ -825,6 +907,15 @@ def _polish_device(pos, vid, weight, seq_len, orig_id, thresholds, device,
         valid_thr, invalid_thr, low_depth = compute_thresholds(
             depth, min_depth, fraction_valid, fraction_invalid
         )
+    if backend == "sharded":
+        from polypolish_tpu_torch.parallel import shard
+
+        step = (shard.sharded_vote_consensus_lanes if variant == "lanes"
+                else shard.sharded_vote_consensus)
+        counts, new_id, status = step(
+            mesh, pos, vid, seq_len, valid_thr, invalid_thr, low_depth,
+            orig_id, timer=timer)
+        return counts, new_id, status, depth, sparse, valid_thr, invalid_thr
     p_pad = _pad_bucket(seq_len)
     i32max = np.int32(2**31 - 1)
 

@@ -13,17 +13,13 @@ import pytest
 
 import tests.bam_util as bam_util
 import tests.synth as synth
-from tests.torch_helpers import mask_clock
+from tests.torch_helpers import GOLDEN, cli_env, mask_clock
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _env():
-    env = dict(os.environ)
-    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    env["POLYPOLISH_TPU_PLAIN_LOG"] = "1"
-    env["JAX_PLATFORMS"] = "cpu"
-    return env
+    return cli_env()
 
 
 def _cli(pkg, *args, debug=None):
@@ -152,3 +148,111 @@ def test_full_matches_jax_cli(tmp_path, flag):
     strip = [ln for ln in got[3].splitlines() if "polypolish_tpu_" not in ln]
     assert strip == [ln for ln in want[3].splitlines()
                      if "polypolish_tpu_" not in ln]
+
+
+@pytest.fixture
+def kernel_calls(monkeypatch):
+    """Counter of the calls the polishers make to the kernel wrappers
+    (models/polisher.py calls them; on the CPU they run the plain
+    versions, which the launch counters do not count)."""
+    import collections
+
+    from polypolish_tpu_torch.models import polisher
+
+    calls = collections.Counter()
+    for name in ("lanes_counts", "chunk_counts"):
+        def wrap(*args, _fn=getattr(polisher, name), _name=name, **kwargs):
+            calls[_name] += 1
+            return _fn(*args, **kwargs)
+
+        monkeypatch.setattr(polisher, name, wrap)
+    return calls
+
+
+def _in_process(argv):
+    import contextlib
+    import io
+
+    from polypolish_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    assert rc == 0, err.getvalue()
+    return out.getvalue()
+
+
+@pytest.mark.parametrize("command", ["polish", "batch", "full"])
+def test_kernel_variable_picks_the_chunk_path(tmp_path, monkeypatch,
+                                              kernel_calls, command):
+    """POLYPOLISH_TPU_KERNEL=mxu with no --kernel-variant takes the chunk
+    kernel's path (no lanes entry point), as the JAX CLI's --backend
+    pallas does under the same variable, with the same bytes out; an
+    explicit --kernel-variant still wins."""
+    tiny = [os.path.join(GOLDEN, "tiny.fasta"),
+            os.path.join(GOLDEN, "tiny.sam")]
+    outs = [str(tmp_path / f"o{i}.fasta") for i in range(2)]
+    if command == "polish":
+        args, n_contigs = ["polish", *tiny], 1
+    elif command == "batch":
+        manifest = tmp_path / "m.tsv"
+        manifest.write_text("".join(f"{tiny[0]}\t{o}\t{tiny[1]}\n"
+                                    for o in outs))
+        args, n_contigs = ["batch", "--workers", "1", str(manifest)], 2
+    else:
+        import numpy as np
+
+        paired = []
+        for i, text in enumerate(synth.make_filter_case(seed=3), 1):
+            paired.append(tmp_path / f"p{i}.sam")
+            paired[-1].write_text(text)
+        rng = np.random.default_rng(3)  # the filter case's genomes
+        asm = tmp_path / "paired.fasta"
+        asm.write_text(synth.fasta_text(
+            [(c, "", synth.rand_seq(rng, 5000)) for c in ("c1", "c2")]))
+        args = ["full", "--in1", str(paired[0]), "--in2", str(paired[1]),
+                str(asm)]
+        n_contigs = 2
+
+    def flags(backend):
+        return [args[0], "--backend", backend, *args[1:]]
+
+    def outputs(result):
+        if command != "batch":
+            return result
+        texts = []
+        for o in outs:
+            with open(o) as f:
+                texts.append(f.read())
+            os.remove(o)
+        return result, texts
+
+    monkeypatch.setenv("POLYPOLISH_TPU_KERNEL", "mxu")
+    port = ["--device", "cpu", *flags("device")[1:]]
+    got = _in_process([args[0], *port])
+    assert dict(kernel_calls) == {"chunk_counts": n_contigs}
+    got = outputs(got)
+    kernel_calls.clear()
+    _in_process([args[0], "--kernel-variant", "lanes", *port])
+    assert kernel_calls["lanes_counts"] == n_contigs
+    outputs(None)
+
+    env = cli_env(POLYPOLISH_TPU_KERNEL="mxu")
+
+    def cli(pkg, argv):
+        proc = subprocess.run([sys.executable, "-m", pkg, *argv],
+                              capture_output=True, text=True, env=env,
+                              cwd=REPO, timeout=300)
+        assert proc.returncode == 0, proc.stderr
+        strip = [ln for ln in proc.stderr.splitlines()
+                 if "polypolish_tpu_" not in ln]  # full's temporary dir
+        # batch names the backend: the JAX package's pallas is device
+        err = "\n".join(strip).replace("backend=pallas", "backend=device")
+        return outputs((proc.stdout, mask_clock(err)))
+
+    want = cli("polypolish_tpu", flags("pallas"))
+    assert cli("polypolish_tpu_torch", [args[0], *port]) == want
+    if command != "batch":
+        assert got == want[0]
+    else:
+        assert got[1] == want[1]

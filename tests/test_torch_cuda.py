@@ -548,3 +548,60 @@ def test_batch_on_gpu_counts_every_launch(cuda_device, tmp_path):
     for (_, got, _), (_, want, _) in zip(jobs, host):
         with open(got) as g, open(want) as w:
             assert g.read() == w.read()
+
+
+@pytest.mark.parametrize("grid", [(1, 1), (2, 2), (1, 3)])
+def test_sharded_grid_on_gpu(cuda_device, tmp_path, grid):
+    """polish(backend="sharded") on a grid of the card: FASTA equal to
+    the host backend's, kernel A launched once per grid cell and contig,
+    no chunk kernel (the mesh pack has no cap)."""
+    from polypolish_tpu_torch.parallel import make_mesh
+
+    fasta, sam_text = synth.make_multi_contig_case(
+        seed=21, n_contigs=2, genome_len=30_000, n_reads=15_000,
+        read_len=60)
+    asm, sam = tmp_path / "s.fasta", tmp_path / "s.sam"
+    asm.write_text(synth.fasta_text(fasta))
+    sam.write_text(sam_text)
+    args = (None, 0.2, 0.5, 10, 5, False, str(asm), [str(sam)])
+    with contextlib.redirect_stderr(io.StringIO()):
+        host = io.StringIO()
+        polish(*args, out=host, backend="host")
+        tvl.lanes_counts.launches.clear()
+        tvc.chunk_counts.launches = 0
+        got = io.StringIO()
+        n = grid[0] * grid[1]
+        polish(*args, out=got, backend="sharded", device=cuda_device,
+               mesh=make_mesh(*grid, devices=[cuda_device] * n),
+               kernel_variant="lanes")
+    assert got.getvalue() == host.getvalue()
+    assert tvl.lanes_counts.launches == {"lanes_vote_packed4": 2 * n}
+    assert tvc.chunk_counts.launches == 0
+
+
+def test_pod_device_votes_on_gpu(cuda_device, tmp_path, monkeypatch):
+    """The pod's device votes in one process (no group): kernel A once,
+    the chunk kernel once when the pack has cap overflow, FASTA equal to
+    the host backend's."""
+    from polypolish_tpu_torch.pipeline.pod_distributed import (
+        polish_pod_distributed,
+    )
+
+    fasta, sam_text = synth.make_polish_case(
+        seed=44, genome_len=20_000, n_reads=20_000, read_len=60, err=0.15,
+        multi_frac=0.5, n_draft_errors=40)
+    asm, sam = tmp_path / "p.fasta", tmp_path / "p.sam"
+    asm.write_text(synth.fasta_text(fasta))
+    sam.write_text(sam_text)
+    args = (None, 0.2, 0.5, 10, 5, False, str(asm), [str(sam)])
+    monkeypatch.setenv("POLYPOLISH_TPU_POD_DEVICE_VOTES", "1")
+    with contextlib.redirect_stderr(io.StringIO()):
+        host = io.StringIO()
+        polish(*args, out=host, backend="host")
+        tvl.lanes_counts.launches.clear()
+        tvc.chunk_counts.launches = 0
+        got = io.StringIO()
+        polish_pod_distributed(*args, out=got, device=cuda_device)
+    assert got.getvalue() == host.getvalue()
+    assert tvl.lanes_counts.launches == {"lanes_vote_packed4": 1}
+    assert tvc.chunk_counts.launches == _has_overflow(str(asm), [str(sam)])

@@ -22,7 +22,7 @@ import pytest
 import tests.synth as synth
 from polypolish_tpu.pipeline.full import polish_paired as jax_full
 from polypolish_tpu_torch.pipeline.full import polish_paired as port_full
-from tests.torch_helpers import mask_clock
+from tests.torch_helpers import cli_env, mask_clock
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the temporary directory of the filtered SAMs (tempfile.mkdtemp)
@@ -109,11 +109,7 @@ def test_keep_filtered(tmp_path):
 
 
 def _env():
-    env = dict(os.environ)
-    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    env["POLYPOLISH_TPU_PLAIN_LOG"] = "1"
-    env["JAX_PLATFORMS"] = "cpu"
-    return env
+    return cli_env()
 
 
 def _cli(pkg, *args):

@@ -86,6 +86,7 @@ def test_pod_pieces_match_jax(tmp_path):
     """Per shard: the same file stats, run headers and vocab; then the
     same merged vocab remaps and gathered headers."""
     from polypolish_tpu.io.fasta import load_fasta
+    from polypolish_tpu_torch.native import binding
 
     fasta, text = synth.make_polish_case(
         seed=12, genome_len=1500, n_reads=2000, read_len=60, err=0.15,
@@ -109,9 +110,33 @@ def test_pod_pieces_match_jax(tmp_path):
         assert vg.strings == vw.strings
         for a, b in zip(rg, rw):
             np.testing.assert_array_equal(a, b)
-        for a, b in zip(port_pod.gather_headers(got[0], 2),
-                        jax_pod.gather_headers(want[0], 2)):
+        headers = port_pod.gather_headers([g.raw()[:4] for g in got[0]],
+                                          [g.file_runs for g in got[0]], 2)
+        jax_headers = jax_pod.gather_headers(want[0], 2)
+        for a, b in zip(headers, jax_headers):
             np.testing.assert_array_equal(a, b)
+        # the merge the multi-process pod shares: per contig, the summed
+        # counts and the sparse tier from per-shard arrays, and the depth
+        for name in names:
+            counts = np.zeros((8, lens[name]), dtype=np.int32)
+            keys, cnts = [], []
+            for g, remap in zip(got[0], rg):
+                c, _d, sparse = g.fold(name)
+                counts += c
+                k, n = port_pod.sparse_keys(sparse, g.base_vocab_len, remap)
+                keys.append(k)
+                cnts.append(n)
+            sparse = port_pod.merge_sparse(keys, cnts)
+            w_counts, w_depth, w_sparse = jax_pod.merge_contig(
+                want[0], rw, jax_headers, name, names, lens[name])
+            np.testing.assert_array_equal(counts, w_counts)
+            assert sparse[0].size > 0
+            for a, b in zip(sparse, w_sparse):
+                assert a.dtype == b.dtype
+                np.testing.assert_array_equal(a, b)
+            depth = binding.depth_fold(*headers, names.index(name),
+                                       lens[name])
+            np.testing.assert_array_equal(depth, w_depth)
     finally:
         for sh in got[0] + want[0]:
             sh.close()

@@ -29,6 +29,7 @@ from polypolish_tpu_torch.pipeline.polish import polish as port_polish
 from tests.torch_helpers import (
     GOLDEN,
     GOLDEN_CASES,
+    cli_env,
     golden_careful,
     mask_clock,
 )
@@ -165,11 +166,7 @@ def test_unknown_backend_raises():
 
 
 def _env():
-    env = dict(os.environ)
-    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    env["POLYPOLISH_TPU_PLAIN_LOG"] = "1"
-    env["JAX_PLATFORMS"] = "cpu"
-    return env
+    return cli_env()
 
 
 def test_cli_matches_jax_cli(tmp_path):
@@ -222,7 +219,7 @@ def test_cli_backend_flags_match_jax_cli(tmp_path):
                    "--kernel-variant", "mxu"))
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(monkeypatch):
     """Every entry point of the port runs on the card unless the caller
     asks for the CPU."""
     import inspect
@@ -230,20 +227,46 @@ def test_entry_points_default_to_cuda():
     from polypolish_tpu_torch import cli
     from polypolish_tpu_torch.models import polisher
     from polypolish_tpu_torch.ops import vote, vote_chunks, vote_lanes
+    from polypolish_tpu_torch.parallel import make_mesh
+    from polypolish_tpu_torch.parallel.multihost import global_mesh
     from polypolish_tpu_torch.pipeline.batch import polish_batch
+    from polypolish_tpu_torch.pipeline.pod_distributed import (
+        polish_pod_distributed,
+    )
     from polypolish_tpu_torch.utils import transport
 
     for fn in (port_polish, vote.count_votes, vote_lanes.dense_counts_lanes,
                vote_chunks.dense_counts_chunks, polisher.PolisherModel,
                polisher.example_inputs, polish_batch,
-               transport.predict_backend, transport.measure_link):
+               transport.predict_backend, transport.measure_link,
+               polish_pod_distributed, global_mesh):
         default = inspect.signature(fn).parameters["device"].default
         assert default == "cuda", fn
-    # the CLI's default backend is auto, as in the JAX CLI; the library
-    # default of polish() stays device
+    # the CLI's default backend is auto, as in the JAX CLI, and its
+    # kernel variant None (POLYPOLISH_TPU_KERNEL, else lanes); the
+    # library default of polish() stays device
     args = cli.build_parser().parse_args(["polish", "a.fasta", "a.sam"])
     assert (args.device, args.backend, args.kernel_variant) == (
-        "cuda", "auto", "lanes")
+        "cuda", "auto", None)
+    # a grid with no devices given spans the visible cards, and the
+    # sharded polish and the pod refuse to start without one
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    for grid in (make_mesh(), global_mesh()):
+        assert [str(d) for d in grid.devices.reshape(-1)] == [
+            "cuda:0", "cuda:1"]
+    assert str(global_mesh(device="cpu")) == "Mesh(1x1: cpu)"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        make_mesh()
+    tiny = (os.path.join(GOLDEN, "tiny.fasta"),
+            [os.path.join(GOLDEN, "tiny.sam")])
+    with pytest.raises(RuntimeError, match="is_available"):
+        port_polish(None, 0.2, 0.5, 10, 5, False, *tiny, out=io.StringIO(),
+                    backend="sharded")
+    with pytest.raises(RuntimeError, match="is_available"):
+        polish_pod_distributed(None, 0.2, 0.5, 10, 5, False, *tiny,
+                               out=io.StringIO())
     args = cli.build_parser().parse_args(["batch", "m.tsv"])
     assert (args.device, args.backend) == ("cuda", "auto")
     assert inspect.signature(port_polish).parameters["backend"].default == \
@@ -270,11 +293,32 @@ from polypolish_tpu_torch.pipeline.full import polish_paired
 from polypolish_tpu_torch.pipeline.pod import polish_pod
 from polypolish_tpu_torch.pipeline.polish import polish
 from polypolish_tpu_torch.utils import transport
+from polypolish_tpu_torch.parallel import make_mesh, multihost
+from polypolish_tpu_torch.pipeline.pod_distributed import (
+    polish_pod_distributed)
+grid = make_mesh(2, 2, devices=["cpu"] * 4)
 for kwargs in (dict(), dict(kernel_variant="mxu"), dict(backend="xla"),
                dict(use_native=False), dict(use_native=False, backend="xla"),
-               dict(use_native=False, backend="host")):
+               dict(use_native=False, backend="host"),
+               dict(backend="sharded"), dict(backend="sharded", mesh=grid),
+               dict(backend="sharded", mesh=grid, kernel_variant="mxu"),
+               dict(backend="sharded", mesh=grid, use_native=False),
+               dict(backend="sharded", mesh=grid, use_native=False,
+                    kernel_variant="mxu")):
     polish(None, 0.2, 0.5, 10, 5, False, sys.argv[1], [sys.argv[2]],
            out=io.StringIO(), device="cpu", **kwargs)
+import socket
+s = socket.socket()
+s.bind(("127.0.0.1", 0))
+port = s.getsockname()[1]
+s.close()
+assert multihost.initialize_distributed(f"127.0.0.1:{port}", 1, 0)
+os.environ["POLYPOLISH_TPU_POD_DEVICE_VOTES"] = "1"
+polish_pod_distributed(None, 0.2, 0.5, 10, 5, False, sys.argv[1],
+                       [sys.argv[2]], out=io.StringIO(), device="cpu")
+polish_batch([(sys.argv[1], os.path.join(sys.argv[5], "b.fasta"),
+               [sys.argv[2]])], device="cpu", shard_across_hosts=True)
+multihost.shutdown_distributed()
 polish_pod(None, 0.2, 0.5, 10, 5, False, sys.argv[1], [sys.argv[2]], 2,
            out=io.StringIO())
 out = os.path.join(sys.argv[5], "batch.fasta")
@@ -301,9 +345,11 @@ print("BAD:" + ",".join(bad))
 
 
 def test_port_imports_no_jax_at_run_time(tmp_path):
-    """Every path the port has (polish on each backend, windowed or not;
-    filter through the device grid step and a .gz output; full)
-    runs without loading jax or polypolish_tpu."""
+    """Every path the port has (polish on each backend, windowed or not,
+    sharded on a grid; the pod over a one-process gloo group with device
+    votes; batch sharded across hosts; filter through the device grid
+    step and a .gz output; full) runs without loading jax or
+    polypolish_tpu."""
     import numpy as np
 
     import tests.synth as synth
@@ -365,7 +411,9 @@ def test_port_sources_import_no_jax():
                    "ops/pack.py", "ops/launch_count.py", "io/sam.py",
                    "io/bam.py", "utils/revcomp.py", "utils/transport.py",
                    "utils/malloc_tuning.py", "pipeline/batch.py",
-                   "pipeline/pod.py"):
+                   "pipeline/pod.py", "parallel/__init__.py",
+                   "parallel/mesh.py", "parallel/shard.py",
+                   "parallel/multihost.py", "pipeline/pod_distributed.py"):
         assert os.path.join("polypolish_tpu_torch", module) in scanned
     assert "chip_smoke.py" in scanned
     assert offenders == []

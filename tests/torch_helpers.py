@@ -113,6 +113,25 @@ def mask_clock(text: str) -> str:
     return _CLOCK.sub("<clock>", text)
 
 
+REPO = os.path.dirname(os.path.dirname(GOLDEN))
+
+
+def cli_env(**extra):
+    """Environment of a ``python -m polypolish_tpu[_torch]`` subprocess
+    whose output is compared: the repository on PYTHONPATH, plain log
+    lines, JAX on the CPU, and the JAX CLI's persistent XLA cache off.
+    With the cache on, a warm cache makes JAX's XLA:CPU loader write
+    ``cpu_aot_loader`` lines into stderr, which no longer matches the
+    port's narrative."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["POLYPOLISH_TPU_PLAIN_LOG"] = "1"
+    env["JAX_PLATFORMS"] = "cpu"
+    env["POLYPOLISH_TPU_CACHE_DIR"] = "off"
+    env.update(extra)
+    return env
+
+
 def run_polish(fn, tmp_path, tag, fasta, sams, careful=False, **kwargs):
     """(FASTA, debug TSV, masked stderr) of one polish run.  The debug
     path is the same for every run so the stderr narratives compare."""
