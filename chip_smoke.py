@@ -314,6 +314,10 @@ def main() -> int:
         for line in _build.ptxas_report(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
+            # the lanes kernels keep their planes and counts in registers
+            check(name != "lanes_vote" or "spill" not in line
+                  or " 0 bytes spill stores, 0 bytes spill loads" in line,
+                  f"ptxas {name}: {line.strip()}")
     print(f"phase 1 (builds + workloads): {time.monotonic() - t0:.1f} s")
 
     R_SUB, TILE_W = vote_lanes.R_SUB, vote_lanes.TILE_W
@@ -368,6 +372,18 @@ def main() -> int:
     pack_bytes = e_vb.numel() * e_vb.element_size()
     e_counts = check_lanes("E. coli pack", e_vb, e_bt, e_ntiles, R_SUB,
                            TILE_W)
+    # the padded capped pack: 512 all-pad blocks (4,096 int32 rows) on
+    # the last tile, the pad a capped count of 4,609 blocks rounds to
+    # (geom_pad(4,609) = 5,120)
+    n_pad = vote_lanes.geom_pad(4609) - 4609 + 1
+    check(n_pad == 512, f"padded pack: {n_pad} pad blocks")
+    pad_vb = torch.cat([e_vb, torch.full((n_pad * R_SUB // 4, TILE_W), -1,
+                                         dtype=torch.int32, device=dev)])
+    pad_bt = torch.cat([e_bt, torch.full((n_pad,), e_ntiles - 1,
+                                         dtype=torch.int32, device=dev)])
+    got = check_lanes(f"padded E. coli pack (+{n_pad} pad blocks on the "
+                      f"last tile)", pad_vb, pad_bt, e_ntiles, R_SUB, TILE_W)
+    check(torch.equal(got, e_counts), "padded pack counts != capped pack")
     for body, vb in (("packed", b_vb), ("cmp", b_vb.view(torch.int8)),
                      ("packed8", n_vb)):
         got = check_lanes(f"E. coli pack, body {body}", vb, b_bt, e_ntiles,
@@ -730,6 +746,9 @@ def main() -> int:
     timed = {
         "lanes_vote_packed4": lanes_timing("lanes_vote_packed4", "packed4",
                                            e_vb, e_bt),
+        "lanes_vote_packed4 (padded)": time_kernel_a(pad_vb, pad_bt,
+                                                     e_ntiles, R_SUB,
+                                                     TILE_W),
         "lanes_vote_bytes": lanes_timing("lanes_vote_bytes", "packed",
                                          b_vb, b_bt),
         "lanes_vote_packed8": lanes_timing("lanes_vote_packed8", "packed8",
@@ -742,6 +761,7 @@ def main() -> int:
     }
     inputs = {
         "lanes_vote_packed4": "E. coli packed4 pack",
+        "lanes_vote_packed4 (padded)": "padded E. coli packed4 pack",
         "lanes_vote_bytes": "E. coli byte pack (uint8)",
         "lanes_vote_packed8": "E. coli packed8 pack",
         "chunk_vote": "E. coli events, uint8 chunks (the mxu path)",
@@ -762,6 +782,20 @@ def main() -> int:
             print(f"{label}: chunk_counts call {x['wrapper_ms']:.4f} ms; "
                   f"deepest tile {x['deepest_tile_chunks']} chunks, last "
                   f"tile (with the pad chunks) {x['last_tile_chunks']}")
+    # the whole lanes_counts call: the host tile_row_start (block_tile's
+    # copy to the host waits for the stream), its upload, the launches
+    wrapper_ms = cuda_ms(lambda: vote_lanes.lanes_counts(
+        e_vb, e_bt, e_ntiles, R_SUB, TILE_W), TIMED_LAUNCHES)
+    print(f"lanes_vote_packed4: lanes_counts call {wrapper_ms:.4f} ms on "
+          f"the E. coli packed4 pack")
+    for label, bt in (("E. coli", e_bt), ("padded E. coli", pad_bt)):
+        rows = np.diff(vote_lanes.tile_row_start(
+            bt.cpu().numpy(), e_ntiles,
+            vote_lanes._rows_per_block(R_SUB, "packed4")))
+        print(f"lanes_vote_packed4 rows of the {label} pack: deepest tile "
+              f"{int(rows[:-1].max())} int32 rows, last tile "
+              f"{int(rows[-1])}")
+    del pad_vb, pad_bt
 
     # -- phases 7-9: windowed polish, default windows, filter and full -
     ctx = dict(dev=dev, zero_counts=zero_counts, read_counts=read_counts,
@@ -801,12 +835,19 @@ def main() -> int:
               f"{vp}:144 (split), {vp}:99 (fused), {vp}:60 (unfused)",
               "chunk_vote"),
     ]
-    # kernel A on the uncapped 1x1 E. coli mesh pack of phase 13
+    # kernel A on the uncapped 1x1 E. coli mesh pack of phase 13, on the
+    # padded capped pack, and the whole lanes_counts call
     ms, plain, lib, votes, n_bytes = uncapped
     b_ms, _ = bound(n_bytes, votes)
     kernels[0].update({"uncapped_ms": ms, "uncapped_plain_ms": plain,
                        "uncapped_bound_ms": b_ms,
                        "uncapped_library_ms": lib})
+    label = "lanes_vote_packed4 (padded)"
+    kernels[0].update({"padded_ms": timed[label][0],
+                       "padded_plain_ms": timed[label][1],
+                       "padded_bound_ms": bounds[label][0],
+                       "padded_library_ms": timed[label][2],
+                       "wrapper_ms": wrapper_ms})
     for role in ("overflow fold", "repeats"):
         label = f"chunk_vote ({role})"
         key = role.replace(" ", "_")

@@ -352,15 +352,20 @@ def lanes_counts(vb: torch.Tensor, block_tile: torch.Tensor, n_tiles: int,
     int32 for packed4, 1 and uint8/int8 for packed and cmp, 8 and int32
     for packed8); block_tile: int32 (n_blocks,), non-decreasing, on the
     same device.  A CUDA tensor launches the body's entry point of the
-    lanes vote kernel (csrc/lanes_vote.cu) on the current stream; a CPU
+    lanes vote kernel (csrc/lanes_vote.cu) on the current stream (packed4
+    and byte rows: two kernels over a split of each tile's rows); a CPU
     tensor runs lanes_counts_plain.  ``lanes_counts.launches`` counts
-    kernel launches by entry point."""
+    entry-point launches (one per call) by entry point."""
     if vb.device.type == "cpu":
         return lanes_counts_plain(vb, block_tile, n_tiles, r_sub, tile_w,
                                   body)
     if vb.device.type != "cuda":
         raise ValueError(f"lanes_counts: unsupported device {vb.device}")
     _check_lanes_args(vb, block_tile, n_tiles, r_sub, tile_w, body)
+    if vb.data_ptr() % 16:
+        # the packed4 and byte kernels read rows in 16-byte pieces: a
+        # view that starts mid-row is copied to a fresh (aligned) buffer
+        vb = vb.clone()
     starts = tile_row_start(block_tile.cpu().numpy(), n_tiles,
                             _rows_per_block(r_sub, body))
     d_starts = torch.from_numpy(starts).to(vb.device)

@@ -7,7 +7,6 @@ counters stay exact under worker threads."""
 import os
 import sys
 import threading
-import time
 
 import pytest
 
@@ -75,15 +74,19 @@ def test_batch_reports_failures_like_jax(tmp_path, capsys):
 
 def test_batch_resume_like_jax(tmp_path, capsys):
     job, = _jobs(tmp_path, 1, "r")
+    asm_mtime = os.path.getmtime(job[0])
     for fn in (polish_batch, jax_batch):
         if os.path.exists(job[1]):
             os.remove(job[1])
+        os.utime(job[0], (asm_mtime, asm_mtime))
         r1 = fn([job], backend="host", workers=1)
         assert "error" not in r1[0] and not r1[0].get("skipped")
         r2 = fn([job], backend="host", workers=1, resume=True)
         assert r2[0].get("skipped") is True
-        time.sleep(0.01)
-        os.utime(job[0])
+        # the assembly one second newer than the output: a file clock's
+        # coarse ticks cannot hide the change
+        out_mtime = os.path.getmtime(job[1])
+        os.utime(job[0], (out_mtime + 1, out_mtime + 1))
         r3 = fn([job], backend="host", workers=1, resume=True)
         assert not r3[0].get("skipped")
     capsys.readouterr()

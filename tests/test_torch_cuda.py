@@ -37,6 +37,7 @@ def _load(name):
 
 
 synth = _load("synth")
+lanes_split = _load("lanes_split")
 
 
 @pytest.fixture
@@ -128,6 +129,76 @@ def test_lanes_kernel_slab_rounded_and_empty_tiles(cuda_device):
     got, want = lanes_both(cuda_device, vb, bt, n_tiles, r_sub, tile_w)
     np.testing.assert_array_equal(got, want)
     assert got.reshape(8, n_tiles, tile_w)[:, per_tile == 0].sum() == 0
+
+
+def split_case(kind, body, tile_w):
+    """(rows in the body's layout, block_tile of one row per block,
+    n_tiles) around the lanes kernel's work split: short tiles then
+    4,096 all-pad rows on the last tile; tiles of exactly S, S + 1 and
+    3S + 5 rows (S, the kernel's rows per segment); every tile but the
+    last empty.  Slots are mostly votes 0-7, with pad 255 and other bytes
+    >= 8."""
+    rng = np.random.default_rng(len(kind) + tile_w)
+    seg = lanes_split.kernel_seg_rows(body)
+    pad_rows = 0
+    if kind == "pad tail":
+        per_tile = rng.integers(0, 21, 300)
+        pad_rows = 4096
+        per_tile[-1] += pad_rows
+    elif kind == "segment edges":
+        per_tile = np.array([seg, seg + 1, 3 * seg + 5, 0, seg - 1, 1,
+                             2 * seg, 2 * seg + 1])
+    else:  # "only the last tile"
+        per_tile = np.zeros(50, np.int64)
+        per_tile[-1] = 3 * seg + 7
+    width = tile_w * (4 if body == "packed4" else 1)
+    n_rows = int(per_tile.sum())
+    vb = rng.integers(0, 8, (n_rows, width), dtype=np.uint8)
+    r = rng.random(vb.shape)
+    vb[r < 0.2] = 255
+    vb[r > 0.95] = rng.integers(8, 255, int((r > 0.95).sum()))
+    if pad_rows:
+        vb[n_rows - pad_rows:] = 255
+    if body == "packed4":
+        vb = vb.view(np.int32)
+    elif body == "cmp":
+        vb = vb.view(np.int8)
+    bt = np.repeat(np.arange(per_tile.size, dtype=np.int32), per_tile)
+    return vb, bt, per_tile.size
+
+
+@pytest.mark.parametrize("tile_w", [128, 2048])
+@pytest.mark.parametrize("body", ["packed4", "packed", "cmp"])
+@pytest.mark.parametrize("kind", ["pad tail", "segment edges",
+                                  "only the last tile"])
+def test_lanes_kernel_split_matches_plain(cuda_device, kind, body, tile_w):
+    """The packed4 and byte-row kernels split a tile's rows into
+    segments of S rows (the first stored, the rest added); each
+    case crosses those boundaries."""
+    vb, bt, n_tiles = split_case(kind, body, tile_w)
+    r_sub = tvl.BODIES[body][0]  # one array row per block
+    got, want = lanes_both(cuda_device, vb, bt, n_tiles, r_sub, tile_w,
+                           body)
+    np.testing.assert_array_equal(got, want)
+    if kind == "only the last tile":
+        assert got.reshape(8, n_tiles, tile_w)[:, :-1].sum() == 0
+
+
+@pytest.mark.parametrize("body", ["packed", "cmp"])
+def test_lanes_kernel_unaligned_rows_match_plain(cuda_device, body):
+    """The byte kernels read rows in 16-byte pieces: a view that starts
+    off a 16-byte boundary is copied first and still counts right."""
+    rng = np.random.default_rng(9)
+    flat = torch.from_numpy(rng.integers(0, 12, 4 * 32 * 128 + 1,
+                                         dtype=np.uint8)).to(cuda_device)
+    vb = flat[1:].view(4 * 32, 128)
+    if body == "cmp":
+        vb = vb.view(torch.int8)
+    assert vb.data_ptr() % 16
+    bt = torch.tensor([0, 0, 1, 2], dtype=torch.int32, device=cuda_device)
+    got = tvl.lanes_counts(vb, bt, 3, 32, 128, body)
+    want = tvl.lanes_counts_plain(vb, bt, 3, 32, 128, body)
+    assert torch.equal(got, want)
 
 
 def test_lanes_kernel_rejects_unsorted_tiles(cuda_device):

@@ -15,6 +15,7 @@ import torch
 
 from polypolish_tpu.ops import vote_lanes as jvl
 from polypolish_tpu_torch.ops import vote_lanes as tvl
+from tests.lanes_split import emulate_split, kernel_seg_rows, lane_segments
 from tests.torch_helpers import (
     LANES_WORKLOADS as WORKLOADS,
     parse_both,
@@ -167,3 +168,120 @@ def test_lanes_counts_checks_arguments():
     with pytest.raises(ValueError, match="n_tiles"):
         tvl.lanes_counts(vb, torch.full((1,), 3, dtype=torch.int32), 2,
                          r_sub=32, tile_w=128)
+
+
+# -- the kernel's work split (csrc/lanes_vote.cu, packed4 and bytes) ----
+# These tests hold the plain model of the split (tests/lanes_split.py),
+# not the kernel, which makes the split on the card: test_torch_cuda.py
+# holds the kernel itself to lanes_counts_plain across the split.
+
+def _split_pack(kind):
+    """(byte rows uint8, block_tile, n_tiles, r_sub, tile_w) of a pack
+    whose rows exercise the split: short tiles only, one deep tile, tiles
+    with no rows, and a slab-rounded stream with its pad on the last
+    tile."""
+    rng = np.random.default_rng(5)
+    if kind == "flat":
+        pos, vocab = rand_events(6000, 2000, 3, 0.1)
+        return (*tvl.prepare_lanes(pos, vocab, 2000, 8, 128), 8, 128)
+    if kind == "deep tile":
+        pos = np.concatenate([np.full(5000, 17, dtype=np.int64),
+                              np.arange(300, dtype=np.int64)])
+        vocab = (np.arange(pos.size) % 8).astype(np.int32)
+        return (*tvl.prepare_lanes(pos, vocab, 300, 32, 128), 32, 128)
+    if kind == "empty tiles":
+        per_tile = rng.integers(0, 40, 60)
+        per_tile[::3] = 0
+        per_tile[-1] = 0
+        n_tiles, r_sub = per_tile.size, 8
+    else:  # "slab pad": 33 real blocks rounded to two slabs of 32
+        per_tile = rng.integers(1, 3, 13)
+        per_tile[-1] += 33 - per_tile.sum()
+        n_tiles, r_sub = per_tile.size, 8
+    bt = np.repeat(np.arange(n_tiles, dtype=np.int32), per_tile)
+    vb = rng.integers(0, 12, (bt.size * r_sub, 128), dtype=np.uint8)
+    if kind == "slab pad":
+        n_blocks = tvl.geom_pad(bt.size, slab=32)
+        assert n_blocks == 64
+        bt = np.concatenate([bt, np.full(n_blocks - bt.size, n_tiles - 1,
+                                         np.int32)])
+        vb = np.concatenate([vb, np.full(((n_blocks - 33) * r_sub, 128),
+                                         tvl.PAD_BYTE, np.uint8)])
+    return vb, bt, n_tiles, r_sub, 128
+
+
+SPLIT_PACKS = ["flat", "deep tile", "empty tiles", "slab pad"]
+SPLIT_SEG_ROWS = [1, 2, 5, 32, 64, 128, 255]
+
+
+def _layout(vb_u8, r_sub, body):
+    return tvl.to_packed4(vb_u8, r_sub) if body == "packed4" else vb_u8
+
+
+@pytest.mark.parametrize("seg_rows", SPLIT_SEG_ROWS)
+@pytest.mark.parametrize("body", ["packed4", "packed"])
+@pytest.mark.parametrize("kind", SPLIT_PACKS)
+def test_lane_segments_cover_every_row_once(kind, body, seg_rows):
+    vb, bt, n_tiles, r_sub, _ = _split_pack(kind)
+    rpb = tvl._rows_per_block(r_sub, body)
+    starts = tvl.tile_row_start(bt, n_tiles, rpb)
+    seg = lane_segments(starts, seg_rows)
+    assert seg.dtype == np.int64 and seg.shape[1] == 3
+    tile, b, e = seg.T
+    # one first segment per tile, empty tiles included, in tile order
+    np.testing.assert_array_equal(tile[:n_tiles], np.arange(n_tiles))
+    np.testing.assert_array_equal(b[:n_tiles], starts[:-1])
+    # deep segments are non-empty, in row order
+    assert np.all(e[n_tiles:] > b[n_tiles:])
+    assert np.all(np.diff(b[n_tiles:]) > 0)
+    assert np.all(e - b <= seg_rows) and np.all(e >= b)
+    # every row of every tile lies in exactly one segment of its tile
+    owner = np.full(int(starts[-1]), -1, np.int64)
+    for t, lo, hi in seg:
+        assert np.all(owner[lo:hi] == -1)
+        owner[lo:hi] = t
+    row_tile = np.repeat(np.arange(n_tiles), np.diff(starts))
+    np.testing.assert_array_equal(owner, row_tile)
+    if kind in ("deep tile", "slab pad") and seg_rows < 64:
+        assert seg.shape[0] > n_tiles  # the split has deep segments
+
+
+@pytest.mark.parametrize("seg_rows", SPLIT_SEG_ROWS)
+@pytest.mark.parametrize("body", ["packed4", "packed"])
+@pytest.mark.parametrize("kind", SPLIT_PACKS)
+def test_split_emulation_equals_plain(kind, body, seg_rows):
+    vb_u8, bt, n_tiles, r_sub, tile_w = _split_pack(kind)
+    vb = torch.from_numpy(_layout(vb_u8, r_sub, body))
+    starts = tvl.tile_row_start(bt, n_tiles, tvl._rows_per_block(r_sub,
+                                                                 body))
+    got = emulate_split(vb, starts, n_tiles, tile_w, body, seg_rows)
+    want = tvl.lanes_counts_plain(vb, torch.from_numpy(bt), n_tiles, r_sub,
+                                  tile_w, body)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["deep tile", "slab pad"])
+def test_split_emulation_equals_jax(kind):
+    """The emulated split of the kernel's own segment length against the
+    JAX packed4 kernel (interpret mode)."""
+    vb_u8, bt, n_tiles, r_sub, tile_w = _split_pack(kind)
+    p4 = tvl.to_packed4(vb_u8, r_sub)
+    starts = tvl.tile_row_start(bt, n_tiles, r_sub // 4)
+    got = emulate_split(torch.from_numpy(p4), starts, n_tiles, tile_w,
+                        "packed4", kernel_seg_rows("packed4"))
+    want = np.asarray(jvl._lanes_call(jnp.asarray(p4), jnp.asarray(bt),
+                                      n_tiles, True, r_sub, tile_w,
+                                      "packed4"))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_seg_rows_match_the_kernel_source():
+    """The kernel's segment length per layout, read from its source, is
+    at most the 255 rows a byte field holds, and the two byte bodies
+    share one decoder."""
+    seg = {body: kernel_seg_rows(body) for body in ("packed4", "packed",
+                                                     "cmp")}
+    assert seg["cmp"] == seg["packed"]
+    assert all(0 < n <= 255 for n in seg.values())
+    # the split's model at the kernel's own lengths is among the cases
+    assert {seg["packed4"], seg["packed"]} <= set(SPLIT_SEG_ROWS)
