@@ -51,7 +51,15 @@ Phases, in order; any failure raises and exits non-zero:
    that are not pads).  The chunk vote kernel is
    timed with its wrapper's device work (order check and tile prefix),
    alone, and as a whole ``chunk_counts`` call, on the E. coli pileup,
-   the E. coli overflow chunks and the repeat-rich pileup.
+   the E. coli overflow chunks and the repeat-rich pileup.  The chunk
+   kernel's second yardstick on the lanes path: the scatter-add of the
+   same overflow events (``add_overflow_counts``, the JAX package's
+   scatter route of the fold, which the port does not take) on the
+   E. coli and repeat-rich overflow lists, its counts bitwise equal to
+   the chunk kernel's and to its plain version; times of the call on
+   device arrays, of its index_put_ alone, of the call with its upload,
+   and of the chunk route as the lanes path runs it (host chunking
+   included), beside phase 4's kernel_b stage.
 7. Windowed polish of the E. coli workload at 1 Mi windows (five
    windows, POLYPOLISH_TPU_WINDOW_MIN=1).  First kernel A and the chunk
    kernel against their plain versions, bitwise, on the second window
@@ -339,6 +347,7 @@ def main() -> int:
         e_ntiles = pack.n_tiles
         ov_pos = pack.ov_pos.astype(np.int64)
         ov_vid = pack.ov_vid.astype(np.int32)
+        e_ov = (pack.ov_pos.copy(), pack.ov_vid.copy())  # int32, uint8
         print(f"E. coli pack: P={P} p_pad={p_pad} n_blocks={pack.n_blocks} "
               f"vb={pack.vb.nbytes} B events={pack.n_events} "
               f"overflow={pack.n_overflow}")
@@ -554,6 +563,14 @@ def main() -> int:
     r_tiles = r8[3]
     r_deepest = int(np.bincount(r8[2]).max())
     del r8
+    r_pack = r_pr.lanes(r_name, R_SUB, TILE_W, num_positions=_pad_bucket(r_P),
+                        packed4=True, cap=True)
+    check(r_pack is not None, "repeats lane pack")
+    try:  # the repeats overflow list, for phase 6's scatter yardstick
+        r_ov = (r_pack.ov_pos.copy(), r_pack.ov_vid.copy())
+        r_ntiles = r_pack.n_tiles
+    finally:
+        r_pack.close()
     r_pr.close()
     check_chunks(f"repeats events (uint8; deepest tile {r_deepest} chunks)",
                  r_cp, r_cv, r_ct, r_tiles)
@@ -578,6 +595,7 @@ def main() -> int:
              ("mxu", dict(backend="device", kernel_variant="mxu")),
              ("xla", dict(backend="xla")))
     host_runs = {}
+    kernel_b_stage = {}
     for case, (fasta_c, sams_c) in cases.items():
         runs = {}
         for path, kwargs in paths:
@@ -598,6 +616,7 @@ def main() -> int:
                   f"| launches {counts} | lengths {lengths}")
             n_lanes = sum(counts[k] for k in LANES)
             if path == "lanes":
+                kernel_b_stage[case] = timer.seconds.get("kernel_b", 0)
                 check(counts["lanes_vote_packed4"] > 0
                       and counts["chunk_vote"] > 0,
                       f"{case}: kernels not launched on the lanes path "
@@ -782,6 +801,76 @@ def main() -> int:
             print(f"{label}: chunk_counts call {x['wrapper_ms']:.4f} ms; "
                   f"deepest tile {x['deepest_tile_chunks']} chunks, last "
                   f"tile (with the pad chunks) {x['last_tile_chunks']}")
+    # the chunk kernel's second yardstick on the lanes path, the scatter-
+    # add of the same overflow events (the JAX package's scatter route)
+    # on the E. coli and repeats overflow lists: its counts bitwise equal
+    # to the chunk kernel's and to the plain version; CUDA-event times of
+    # add_overflow_counts on device-resident arrays (the index_put_ after
+    # the drop mask's compaction, which waits for the device), of the
+    # index_put_ alone, of the call with its upload and of the chunk
+    # route as the lanes path runs it (host prepare_chunks, upload, chunk
+    # kernel, add)
+    ov_timed = {}
+    for label, (op, ovid), n_tiles in (("E. coli", e_ov, e_ntiles),
+                                       ("repeats", r_ov, r_ntiles)):
+        width = n_tiles * TILE_W
+
+        def zeros(device=dev):
+            return torch.zeros((8, width), dtype=torch.int32, device=device)
+
+        d_op = torch.from_numpy(op).to(dev)
+        d_ov = torch.from_numpy(ovid).to(dev)
+        got = vote_lanes.add_overflow_counts(zeros(), d_op, d_ov)
+        via_host = vote_lanes.add_overflow_counts(zeros(), op, ovid)
+        cpu = vote_lanes.add_overflow_counts(zeros("cpu"), op, ovid)
+
+        def chunk_route(counts):
+            cp, cv, ct, nt = vote_chunks.prepare_chunks(
+                op.astype(np.int64), ovid.astype(np.int32), width)
+            extra = vote_chunks.chunk_counts(
+                *(torch.from_numpy(a).to(dev) for a in (cp, cv, ct)), nt)
+            counts += extra[:, :width]
+            return counts
+
+        chunk = chunk_route(zeros())
+        cp, cv, ct, nt = vote_chunks.prepare_chunks(
+            op.astype(np.int64), ovid.astype(np.int32), width)
+        plain = vote_chunks.chunk_counts_plain(
+            *(torch.from_numpy(a).to(dev) for a in (cp, cv, ct)),
+            nt)[:, :width]
+        torch.cuda.synchronize()
+        err = max(max_abs_err(got, plain), max_abs_err(got, chunk),
+                  max_abs_err(via_host, got), max_abs_err(cpu, got.cpu()))
+        check(err == 0 and int(got.sum()) == int((ovid < 8).sum()),
+              f"{label} overflow: scatter != chunk kernel / plain (max err "
+              f"{err})")
+        acc = zeros()
+        rows, cols = d_ov.to(torch.int64), d_op.to(torch.int64)
+        ones = torch.ones_like(rows, dtype=torch.int32)
+        ov_timed[label] = {
+            "events": int(op.size),
+            "scatter_ms": cuda_ms(lambda: vote_lanes.add_overflow_counts(
+                acc, d_op, d_ov), TIMED_LAUNCHES),
+            "index_put_ms": cuda_ms(lambda: acc.index_put_(
+                (rows, cols), ones, accumulate=True), TIMED_LAUNCHES),
+            "scatter_route_ms": cuda_ms(
+                lambda: vote_lanes.add_overflow_counts(acc, op, ovid),
+                TIMED_LAUNCHES),
+            "chunk_route_ms": cuda_ms(lambda: chunk_route(acc), 5),
+        }
+        x = ov_timed[label]
+        print(f"overflow fold, {label} ({x['events']} events, {width} "
+              f"positions): scatter counts == chunk kernel == plain; "
+              f"add_overflow_counts on the card {x['scatter_ms']:.4f} ms "
+              f"(index_put_ alone {x['index_put_ms']:.4f} ms), with its "
+              f"upload {x['scatter_route_ms']:.4f} ms; chunk route "
+              f"(prepare_chunks, upload, kernel, add) "
+              f"{x['chunk_route_ms']:.4f} ms")
+    del acc
+    print(f"overflow fold, E. coli: chunk kernel "
+          f"{timed['chunk_vote (overflow fold)'][0]:.4f} ms; phase 4 "
+          f"lanes stage kernel_b {kernel_b_stage['ecoli50x']:.4f} s "
+          f"(repeats {kernel_b_stage['repeats']:.4f} s)")
     # the whole lanes_counts call: the host tile_row_start (block_tile's
     # copy to the host waits for the stream), its upload, the launches
     wrapper_ms = cuda_ms(lambda: vote_lanes.lanes_counts(
@@ -848,6 +937,15 @@ def main() -> int:
                        "padded_bound_ms": bounds[label][0],
                        "padded_library_ms": timed[label][2],
                        "wrapper_ms": wrapper_ms})
+    # B's second yardstick on the lanes path: the scatter-add's one
+    # PyTorch call on the same overflow events (E. coli; repeats)
+    for prefix, label in (("ov", "E. coli"), ("repeats_ov", "repeats")):
+        x = ov_timed[label]
+        kernels[-1].update({f"{prefix}_scatter_ms": x["scatter_ms"],
+                            f"{prefix}_index_put_ms": x["index_put_ms"],
+                            f"{prefix}_scatter_route_ms":
+                                x["scatter_route_ms"],
+                            f"{prefix}_chunk_route_ms": x["chunk_route_ms"]})
     for role in ("overflow fold", "repeats"):
         label = f"chunk_vote ({role})"
         key = role.replace(" ", "_")

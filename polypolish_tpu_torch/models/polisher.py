@@ -17,8 +17,11 @@ calls run the kernels' plain PyTorch versions.
 The JAX package split long block streams into slabs for a scalar-memory
 limit of the TPU; one launch of the lanes vote kernel takes any block
 count, so there are no slabs here.  The overflow list always takes the
-chunk vote kernel (the JAX package's "mxu" overflow mode; its XLA
-scatter mode gives the same counts).
+chunk vote kernel, the counterpart of the Pallas kernel that the JAX
+package runs there on a TPU (its "mxu" overflow mode).  The port reads
+no POLYPOLISH_TPU_OV_MODE: the JAX package's other value, "scatter"
+(an XLA scatter-add, its default in interpret mode), gives bitwise the
+same counts, so the variable changes no output of either package.
 """
 
 from __future__ import annotations

@@ -87,6 +87,12 @@ class ParsedRuns:
             self._lib.pp_free_runs(self._view)
             self._view = None
 
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
     def __del__(self):  # best-effort
         try:
             self.close()
@@ -447,6 +453,12 @@ class LanesPack:
             self.ov_vid = None
             self._lib.pp_free_lanes(self._view)
             self._view = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
     def __del__(self):  # best-effort
         try:

@@ -389,17 +389,19 @@ lanes_counts.launches = collections.Counter()
 def add_overflow_counts(counts: torch.Tensor, ov_pos, ov_vid
                         ) -> torch.Tensor:
     """Add the depth-stratified overflow events (vocab bytes at
-    positions whose depth exceeded the tile's row cap) onto the kernel
-    counts, in place.  Exact integer adds, bitwise-equal to having
-    packed them into lane slots.  Pad/sparse entries (vid >= 8 or
-    pos >= P) drop."""
+    positions whose depth exceeded the tile's row cap; numpy arrays or
+    tensors) onto the kernel counts, in place.  Exact integer adds,
+    bitwise-equal to having packed them into lane slots.  Pad/sparse
+    entries (vid >= 8 or pos >= P) drop.  A numpy array's upload is from
+    pageable memory (it has finished when this returns, so the arrays
+    may alias native memory that is freed next), and the drop's boolean
+    compaction waits for the device."""
     from polypolish_tpu_torch.ops.vote import scatter_add_drop
 
     dev = counts.device
-    return scatter_add_drop(
-        counts, torch.from_numpy(np.asarray(ov_vid)).to(dev),
-        torch.from_numpy(np.asarray(ov_pos)).to(dev),
-    )
+    vid, pos = (a if torch.is_tensor(a) else torch.from_numpy(np.asarray(a))
+                for a in (ov_vid, ov_pos))
+    return scatter_add_drop(counts, vid.to(dev), pos.to(dev))
 
 
 def dense_counts_lanes(

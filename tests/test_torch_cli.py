@@ -1,9 +1,11 @@
 """The port's CLI flags of this slice against ``python -m polypolish_tpu``
 with the same flags (its ``--backend pallas`` is the port's ``device``):
 ``batch``, ``--pure-python`` (SAM and BAM), ``--pod-shards`` on
-``polish`` and ``full``, and the default ``--backend auto`` (the host
-backend on a machine without a GPU).  stdout, --debug TSV, output files
-and stderr with the clock masked are compared."""
+``polish`` and ``full``, the default ``--backend auto`` (the host
+backend on a machine without a GPU) and POLYPOLISH_TPU_KERNEL; the
+JAX CLI under POLYPOLISH_TPU_OV_MODE and POLYPOLISH_TPU_PLATFORM, which
+the port does not read.  stdout, --debug TSV, output files and stderr
+with the clock masked are compared."""
 
 import os
 import subprocess
@@ -13,21 +15,23 @@ import pytest
 
 import tests.bam_util as bam_util
 import tests.synth as synth
-from tests.torch_helpers import GOLDEN, cli_env, mask_clock
+from tests.torch_helpers import (
+    GOLDEN,
+    cli_env,
+    count_polisher_calls,
+    mask_clock,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _env():
-    return cli_env()
-
-
-def _cli(pkg, *args, debug=None):
-    """(exit code, stdout, --debug TSV or None, masked stderr)."""
+def _cli(pkg, *args, debug=None, **env):
+    """(exit code, stdout, --debug TSV or None, masked stderr) under the
+    environment variables given."""
     if pkg == "polypolish_tpu_torch" and args[0] != "filter":
         args = (args[0], "--device", "cpu", *args[1:])
     proc = subprocess.run([sys.executable, "-m", pkg, *args],
-                          capture_output=True, text=True, env=_env(),
+                          capture_output=True, text=True, env=cli_env(**env),
                           cwd=REPO, timeout=300)
     tsv = None
     if debug is not None and os.path.exists(debug):
@@ -152,21 +156,7 @@ def test_full_matches_jax_cli(tmp_path, flag):
 
 @pytest.fixture
 def kernel_calls(monkeypatch):
-    """Counter of the calls the polishers make to the kernel wrappers
-    (models/polisher.py calls them; on the CPU they run the plain
-    versions, which the launch counters do not count)."""
-    import collections
-
-    from polypolish_tpu_torch.models import polisher
-
-    calls = collections.Counter()
-    for name in ("lanes_counts", "chunk_counts"):
-        def wrap(*args, _fn=getattr(polisher, name), _name=name, **kwargs):
-            calls[_name] += 1
-            return _fn(*args, **kwargs)
-
-        monkeypatch.setattr(polisher, name, wrap)
-    return calls
+    return count_polisher_calls(monkeypatch)
 
 
 def _in_process(argv):
@@ -256,3 +246,51 @@ def test_kernel_variable_picks_the_chunk_path(tmp_path, monkeypatch,
         assert got == want[0]
     else:
         assert got[1] == want[1]
+
+
+@pytest.mark.parametrize("ov_mode", ["scatter", "mxu"])
+def test_ov_mode_variable_matches_jax_cli(tmp_path, monkeypatch,
+                                          kernel_calls, ov_mode):
+    """The lanes polish of a case with cap-overflow events under
+    POLYPOLISH_TPU_OV_MODE: the port folds the overflow with the chunk
+    kernel whatever the value, and its stdout, --debug TSV and stderr
+    equal the JAX CLI's --backend pallas under the same value (its
+    scatter or its chunk kernel)."""
+    from tests.torch_helpers import synth_case
+
+    asm, sams = synth_case(tmp_path, "deep")
+    dbg = str(tmp_path / "d.tsv")
+    args = ["polish", "--debug", dbg, str(asm), *map(str, sams)]
+    monkeypatch.setenv("POLYPOLISH_TPU_OV_MODE", ov_mode)
+    fasta = _in_process([args[0], "--backend", "device", "--device", "cpu",
+                         *args[1:]])
+    assert dict(kernel_calls) == {"lanes_counts": 1, "chunk_counts": 1}
+    got = _cli("polypolish_tpu_torch", args[0], "--backend", "device",
+               *args[1:], debug=dbg, POLYPOLISH_TPU_OV_MODE=ov_mode)
+    want = _cli("polypolish_tpu", args[0], "--backend", "pallas", *args[1:],
+                debug=dbg, POLYPOLISH_TPU_OV_MODE=ov_mode)
+    assert got[0] == 0, got[3]
+    assert got == want
+    assert got[1] == fasta
+
+
+def test_platform_variable_matches_jax_cli(tmp_path):
+    """The JAX CLI forces its platform with POLYPOLISH_TPU_PLATFORM; the
+    port's only switch is --device, and it reads no such variable.  With
+    --device cpu the port is byte-equal to the JAX CLI under
+    POLYPOLISH_TPU_PLATFORM=cpu (the default backend and the device
+    one), whatever the variable holds."""
+    fasta = os.path.join(GOLDEN, "indel_adopted.fasta")
+    sam = os.path.join(GOLDEN, "indel_adopted.sam")
+    dbg = str(tmp_path / "d.tsv")
+    for port_flags, jax_flags in (([], []),
+                                  (["--backend", "device"],
+                                   ["--backend", "pallas"])):
+        args = ["--debug", dbg, fasta, sam]
+        want = _cli("polypolish_tpu", "polish", *jax_flags, *args,
+                    debug=dbg, POLYPOLISH_TPU_PLATFORM="cpu")
+        assert want[0] == 0, want[3]
+        for platform in ("cpu", "tpu"):
+            got = _cli("polypolish_tpu_torch", "polish", *port_flags, *args,
+                       debug=dbg, POLYPOLISH_TPU_PLATFORM=platform)
+            assert got == want, platform

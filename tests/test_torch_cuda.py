@@ -284,6 +284,32 @@ def test_polish_on_gpu_matches_host(cuda_device, tmp_path):
     assert results["device"] == results["host"]
 
 
+def test_overflow_scatter_matches_chunk_kernel(cuda_device):
+    """add_overflow_counts on the card (numpy arrays uploaded, or device
+    tensors) equals the chunk kernel's overflow counts and the CPU
+    scatter, bitwise; out-of-range events drop."""
+    rng = np.random.default_rng(9)
+    width = 64 * 2048
+    pos = np.sort(rng.integers(0, width, 300_000)).astype(np.int32)
+    vid = rng.integers(0, 8, pos.size).astype(np.uint8)
+    cp, cv, ct, nt = tvc.prepare_chunks(pos.astype(np.int64),
+                                        vid.astype(np.int32), width)
+    want = tvc.chunk_counts(*(torch.from_numpy(a).to(cuda_device)
+                              for a in (cp, cv, ct)), nt)[:, :width]
+    cpu = tvl.add_overflow_counts(torch.zeros((8, width), dtype=torch.int32),
+                                  pos, vid)
+    bad_pos = np.concatenate([pos, [width, 5]]).astype(np.int32)
+    bad_vid = np.concatenate([vid, [1, 9]]).astype(np.uint8)
+    for args in ((bad_pos, bad_vid),
+                 (torch.from_numpy(bad_pos).to(cuda_device),
+                  torch.from_numpy(bad_vid).to(cuda_device))):
+        got = tvl.add_overflow_counts(
+            torch.zeros((8, width), dtype=torch.int32, device=cuda_device),
+            *args)
+        assert torch.equal(got, want)
+        assert torch.equal(got.cpu(), cpu)
+
+
 def _deep_rows(rng, per_tile, row_values, tile_w):
     """Rows of random slot values with the given array-row count per
     tile (one row per block): (vb, block_tile)."""

@@ -24,7 +24,13 @@ import pytest
 import tests.synth as synth
 from polypolish_tpu.pipeline.polish import polish as jax_polish
 from polypolish_tpu_torch.pipeline.polish import polish as port_polish
-from tests.torch_helpers import REPO, cli_env, mask_clock, run_polish
+from tests.torch_helpers import (
+    REPO,
+    cli_env,
+    count_polisher_calls,
+    mask_clock,
+    run_polish,
+)
 
 TIMEOUT = 150
 _GLOO = re.compile(r"^\[[WIE]\d{4} [^\]]*\] \[c10d\].*$\n?", re.M)
@@ -128,14 +134,45 @@ def test_two_files_two_contigs(tmp_path):
     _check_against_single(tmp_path, asm, sams, 2)
 
 
-def test_device_votes(tmp_path):
+@pytest.mark.parametrize("ov_mode", [None, "scatter"])
+def test_device_votes(tmp_path, monkeypatch, ov_mode):
     """POLYPOLISH_TPU_POD_DEVICE_VOTES=1: each rank counts its shard
-    with kernel A and the chunk kernel (plain versions on the CPU) before
-    the sum; the output stays byte-identical."""
-    asm, sams = _polish_case(tmp_path, 53, genome_len=600, n_reads=450,
+    with kernel A and the chunk kernel over its cap overflow (plain
+    versions on the CPU) before the sum, whatever POLYPOLISH_TPU_OV_MODE
+    says; the output stays byte-identical to the JAX package's
+    single-process host run.  Both shards of the case hold
+    overflow events, and each shard's device votes (in process, the
+    wrapper calls counted) equal its host fold."""
+    from polypolish_tpu_torch.io.fasta import load_fasta
+    from polypolish_tpu_torch.native import runs
+    from polypolish_tpu_torch.pipeline.pod_distributed import _device_counts
+    from polypolish_tpu_torch.vocab import Vocab
+
+    asm, sams = _polish_case(tmp_path, 53, genome_len=600, n_reads=1500,
                              read_len=45, err=0.07, multi_frac=0.4)
-    _check_against_single(tmp_path, asm, sams, 2,
-                          POLYPOLISH_TPU_POD_DEVICE_VOTES="1")
+    monkeypatch.delenv("POLYPOLISH_TPU_OV_MODE", raising=False)
+    env = {"POLYPOLISH_TPU_POD_DEVICE_VOTES": "1"}
+    if ov_mode is not None:
+        monkeypatch.setenv("POLYPOLISH_TPU_OV_MODE", ov_mode)
+        env["POLYPOLISH_TPU_OV_MODE"] = ov_mode
+    calls = count_polisher_calls(monkeypatch)
+    (name, _, seq), = load_fasta(asm)
+    for rank in range(2):
+        shard = runs.parse_runs([str(s) for s in sams], [name],
+                                {name: len(seq)}, Vocab(), 10, False,
+                                proc_idx=rank, n_procs=2)
+        try:
+            pack = shard.lanes(name, 32, 2048, num_positions=4096,
+                               packed4=True, cap=True)
+            assert pack.n_overflow > 0
+            pack.close()
+            calls.clear()
+            got = _device_counts(shard, name, len(seq), "cpu")
+            np.testing.assert_array_equal(got, shard.fold(name)[0])
+        finally:
+            shard.close()
+        assert dict(calls) == {"lanes_counts": 1, "chunk_counts": 1}
+    _check_against_single(tmp_path, asm, sams, 2, **env)
 
 
 def _lopsided_case(tmp_path):

@@ -129,6 +129,31 @@ def test_deep_case_exercises_sparse_tier_and_overflow(tmp_path):
         pr.close()
 
 
+def test_parsed_runs_and_lanes_pack_are_context_managers(tmp_path):
+    """``with`` frees the native handle of a ParsedRuns and of a
+    LanesPack on the way out, as the JAX package's classes do, and a
+    second close() is harmless."""
+    from polypolish_tpu_torch.io.fasta import load_fasta
+    from polypolish_tpu_torch.native import runs
+    from polypolish_tpu_torch.vocab import Vocab
+
+    asm, sams = _synth_case(tmp_path, "deep")
+    (name, _, seq), = load_fasta(asm)
+    with runs.parse_runs([str(s) for s in sams], [name], {name: len(seq)},
+                         Vocab(), 10, False) as pr:
+        assert pr._view is not None
+        with pr.lanes(name, 32, 2048, num_positions=4096, packed4=True,
+                      cap=True) as pack:
+            assert pack._view is not None and pack.n_overflow > 0
+            ov = pack.ov_pos.copy()
+        assert pack._view is None and pack.vb is None and pack.ov_pos is None
+        pack.close()
+        assert pr._view is not None
+    assert pr._view is None
+    pr.close()
+    assert ov.size > 0
+
+
 @pytest.mark.parametrize("args,match", [
     (dict(fraction_invalid=0.6), "less than --fraction_valid"),
     (dict(fraction_valid=1.0), "between 0 and 1"),

@@ -2,9 +2,11 @@
 ``LanesPolisher.forward_pack`` on the CPU equals the JAX
 ``LanesPolisher(interpret=True)`` bitwise — counts, adopted ids and
 statuses — on native packed4 and byte-row packs with and without the
-cap-overflow list, under both POLYPOLISH_TPU_OV_MODE values of the JAX
-side; ``PolisherModel`` equals the JAX ``PolisherModel(interpret=True)``
-with and without the kernel, on numpy-packed and native uint8 chunks.
+cap-overflow list, with the JAX side under each value of
+POLYPOLISH_TPU_OV_MODE (scatter, mxu, unset) and the port on its one
+route, checked by the calls it makes to its kernel wrappers;
+``PolisherModel`` equals the JAX ``PolisherModel(interpret=True)`` with
+and without the kernel, on numpy-packed and native uint8 chunks.
 Tolerance: none."""
 
 import jax.numpy as jnp
@@ -25,6 +27,7 @@ from polypolish_tpu_torch.models.polisher import (
 from polypolish_tpu_torch.ops import consensus as tc
 from polypolish_tpu_torch.ops.vote_lanes import prepare_lanes
 from tests.torch_helpers import (
+    count_polisher_calls,
     parse_both,
     rand_events,
     write_polish_case,
@@ -45,6 +48,31 @@ def thresholds(depth, P_pad, seed):
             pad(low, True, bool), pad(orig, 0, np.int32))
 
 
+@pytest.fixture
+def wrapper_calls(monkeypatch):
+    return count_polisher_calls(monkeypatch)
+
+
+def set_ov_mode(monkeypatch, ov_mode):
+    if ov_mode is None:
+        monkeypatch.delenv("POLYPOLISH_TPU_OV_MODE", raising=False)
+    else:
+        monkeypatch.setenv("POLYPOLISH_TPU_OV_MODE", ov_mode)
+
+
+def route_calls(has_overflow):
+    """The wrapper calls of one vote_counts, whatever
+    POLYPOLISH_TPU_OV_MODE says: kernel A once, then the chunk kernel
+    when there are overflow events."""
+    want = {"lanes_counts": 1}
+    if has_overflow:
+        want["chunk_counts"] = 1
+    return want
+
+
+OV_MODES = ["scatter", "mxu", None]
+
+
 def run_both(vb, bt, thr, P_pad, r_sub, tile_w, ov_pos, ov_vid,
              device="cpu"):
     jm = JaxPolisher(P_pad, r_sub=r_sub, tile_w=tile_w, interpret=True,
@@ -61,12 +89,13 @@ def run_both(vb, bt, thr, P_pad, r_sub, tile_w, ov_pos, ov_vid,
     return got, want
 
 
-@pytest.mark.parametrize("ov_mode", ["scatter", "mxu"])
+@pytest.mark.parametrize("ov_mode", OV_MODES)
 @pytest.mark.parametrize("cap", [False, True])
 @pytest.mark.parametrize("seed", [31, 67])
-def test_forward_pack_native_matches_jax(tmp_path, monkeypatch, seed, cap,
+def test_forward_pack_native_matches_jax(tmp_path, monkeypatch,
+                                         wrapper_calls, seed, cap,
                                          ov_mode):
-    monkeypatch.setenv("POLYPOLISH_TPU_OV_MODE", ov_mode)
+    set_ov_mode(monkeypatch, ov_mode)
     r_sub, tile_w, P_pad = 8, 256, 4096
     asm, sam = write_polish_case(tmp_path, seed=seed, genome_len=4000,
                                  n_reads=4000)
@@ -81,6 +110,7 @@ def test_forward_pack_native_matches_jax(tmp_path, monkeypatch, seed, cap,
             assert (pack.ov_vid < 8).any(), "needs dense overflow events"
         got, want = run_both(pack.vb, pack.block_tile, thr, P_pad, r_sub,
                              tile_w, pack.ov_pos, pack.ov_vid)
+        assert dict(wrapper_calls) == route_calls(pack.n_overflow > 0)
         for g, w in zip(got, want):
             assert g.dtype == w.dtype
             np.testing.assert_array_equal(g, w)
@@ -92,11 +122,12 @@ def test_forward_pack_native_matches_jax(tmp_path, monkeypatch, seed, cap,
         tr.close()
 
 
-@pytest.mark.parametrize("ov_mode", ["scatter", "mxu"])
-def test_forward_pack_numpy_pack_matches_jax(monkeypatch, ov_mode):
+@pytest.mark.parametrize("ov_mode", OV_MODES)
+def test_forward_pack_numpy_pack_matches_jax(monkeypatch, wrapper_calls,
+                                             ov_mode):
     """A numpy-packed skewed pileup (uint8 rows, converted to packed4
     inside vote_counts) with a large overflow list."""
-    monkeypatch.setenv("POLYPOLISH_TPU_OV_MODE", ov_mode)
+    set_ov_mode(monkeypatch, ov_mode)
     P, r_sub, tile_w = 4000, 8, 128
     pos, vocab = rand_events(120_000, P, 7, skew=True)
     vb, bt, n_tiles, ov_pos, ov_vid = prepare_lanes(
@@ -106,8 +137,35 @@ def test_forward_pack_numpy_pack_matches_jax(monkeypatch, ov_mode):
     P_pad = n_tiles * tile_w
     thr = thresholds(depth, P_pad, 7)
     got, want = run_both(vb, bt, thr, P_pad, r_sub, tile_w, ov_pos, ov_vid)
+    assert dict(wrapper_calls) == route_calls(True)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+def test_ov_mode_is_read_at_every_call(monkeypatch, wrapper_calls):
+    """One LanesPolisher under POLYPOLISH_TPU_OV_MODE changed between
+    calls (mxu, scatter, an unknown value, unset) keeps the chunk kernel
+    for the overflow and gives bitwise the JAX LanesPolisher's counts
+    under the same value; the JAX package takes an unknown value for its
+    default."""
+    P, r_sub, tile_w = 3000, 8, 128
+    pos, vocab = rand_events(60_000, P, 5, skew=True)
+    vb, bt, n_tiles, ov_pos, ov_vid = prepare_lanes(
+        pos, vocab, P, r_sub, tile_w, cap=True)
+    assert ov_pos.size > 0
+    model = LanesPolisher(n_tiles * tile_w, "cpu", r_sub=r_sub,
+                          tile_w=tile_w)
+    jm = JaxPolisher(n_tiles * tile_w, r_sub=r_sub, tile_w=tile_w,
+                     interpret=True, body="packed4")
+    for mode in ("mxu", "scatter", "unknown", None):
+        set_ov_mode(monkeypatch, mode)
+        wrapper_calls.clear()
+        got = model.vote_counts(vb, bt, ov_pos, ov_vid)
+        assert dict(wrapper_calls) == route_calls(True)
+        assert set(model.timer.seconds) == {"upload", "kernel_a",
+                                            "kernel_b"}
+        want = np.asarray(jm.vote_counts(vb, bt, ov_pos, ov_vid))
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_rejects_unpacked_layouts(tmp_path, monkeypatch):

@@ -7,8 +7,10 @@ device="cpu": kernels A and B run their plain PyTorch versions) must
 give a FASTA and a stderr narrative (clock masked) byte-identical to the
 JAX package's windowed host and pallas paths (pallas in interpret mode),
 across window sizes, sparse-tier votes that cross window boundaries, a
-multi-contig case and the JAX package's window depths 1, 2 and 3 (the
-port runs one window after another at every depth).  Also:
+multi-contig case, the JAX package's window depths 1, 2 and 3 (the
+port runs one window after another at every depth) and both values of
+POLYPOLISH_TPU_OV_MODE on the JAX side (the port reads no such
+variable).  Also:
 ``fold_window`` equals the JAX package's, a window-origin pack counted
 by the plain version of kernel A equals the host fold restricted to the
 window, and every pack is closed when a window's count or finish
@@ -26,7 +28,7 @@ import torch
 import tests.synth as synth
 from polypolish_tpu.pipeline.polish import polish as jax_polish
 from polypolish_tpu_torch.pipeline.polish import polish as port_polish
-from tests.torch_helpers import mask_clock, parse_both
+from tests.torch_helpers import POLISHER_WRAPPERS, mask_clock, parse_both
 
 PORT_OF = {"host": "host", "pallas": "device"}
 
@@ -128,6 +130,37 @@ def test_window_depths_match_jax(tmp_path, monkeypatch, depth):
     _windowed(monkeypatch, 777, depth)
     port, jax = _both(asm, sams, "pallas")
     assert port == jax
+
+
+@pytest.mark.parametrize("ov_mode", ["scatter", "mxu"])
+def test_overflow_routes_match_jax(tmp_path, monkeypatch, ov_mode):
+    """The device twin against the JAX package's windowed pallas path
+    under each POLYPOLISH_TPU_OV_MODE route of its overflow fold, on a
+    case whose two 2,048-position windows both hold cap-overflow events:
+    the port folds each window's overflow with the chunk kernel (the
+    window's width, not the contig's) whatever the value, and the output
+    equals the unwindowed host run."""
+    from polypolish_tpu_torch.models import polisher
+
+    asm, sams = _write(tmp_path, *_case("sparse"), "v")
+    unwindowed = _polish(port_polish, asm, sams, backend="host")
+    calls = []
+    for name in POLISHER_WRAPPERS:
+        def wrap(*args, _fn=getattr(polisher, name), _name=name):
+            calls.append((_name, args[3] if _name == "chunk_counts"
+                          else None))
+            return _fn(*args)
+
+        monkeypatch.setattr(polisher, name, wrap)
+    monkeypatch.setenv("POLYPOLISH_TPU_OV_MODE", ov_mode)
+    _windowed(monkeypatch, 1000)  # the device twin rounds up to 2,048
+    port, jax = _both(asm, sams, "pallas")
+    assert port == jax
+    assert port == unwindowed
+    assert [c[0] for c in calls] == ["lanes_counts", "chunk_counts"] * 2
+    # each window's chunk kernel covers that window's tiles alone
+    for _, n_tiles in calls[1::2]:
+        assert n_tiles * polisher.TILE_P <= 2048
 
 
 def test_two_files_and_defaults_leave_small_contigs_unwindowed(

@@ -132,6 +132,27 @@ def cli_env(**extra):
     return env
 
 
+POLISHER_WRAPPERS = ("lanes_counts", "chunk_counts")
+
+
+def count_polisher_calls(monkeypatch):
+    """Counter of the calls models/polisher.py makes to the kernel
+    wrappers while the test runs (on the CPU the wrappers run the plain
+    versions, which the launch counters do not count)."""
+    import collections
+
+    from polypolish_tpu_torch.models import polisher
+
+    calls = collections.Counter()
+    for name in POLISHER_WRAPPERS:
+        def wrap(*args, _fn=getattr(polisher, name), _name=name, **kwargs):
+            calls[_name] += 1
+            return _fn(*args, **kwargs)
+
+        monkeypatch.setattr(polisher, name, wrap)
+    return calls
+
+
 def run_polish(fn, tmp_path, tag, fasta, sams, careful=False, **kwargs):
     """(FASTA, debug TSV, masked stderr) of one polish run.  The debug
     path is the same for every run so the stderr narratives compare."""
