@@ -7,8 +7,8 @@ NVIDIA GPU.
 Phases, in order; any failure raises and exits non-zero:
 
 1. Print the card (nvidia-smi name, power limit).  Build the native C++
-   engine (g++) and both CUDA kernel sources (one nvcc per source, in
-   parallel) from the sources in the checkout, while the workloads are
+   engine (g++) and the three CUDA kernel sources (one nvcc per source,
+   in parallel) from the sources in the checkout, while the workloads are
    generated: benchmarks/workload.py's 4.6 Mb E. coli-shaped draft with
    paired 150 bp reads at 50x (two SAM files), and its repeat-rich
    variant (a 5 kb segment in 8 copies).
@@ -19,10 +19,18 @@ Phases, in order; any failure raises and exits non-zero:
    uint8 and int8) and the packed8 nibbles (C) on the E. coli byte pack
    and the skewed deep pack (past 255 byte-rows and 15 packed8 rows);
    packed8 on tiles of 14, 15, 16, 30 and 31 rows around its 15-row
-   flush, and on all-pad and one-value words.
+   flush, and on all-pad and one-value words.  The overflow vote kernel
+   (the lanes path's cap-overflow fold) against its plain version,
+   bitwise, adding into kernel A's counts: the E. coli overflow list as
+   the packer leaves it (phase 3 adds the repeat-rich one), shuffled,
+   with dropped and wrapped entries (vid >= 8, pos >= the width, pos in
+   [-width, 0)), from views off a 16-byte boundary, one position
+   holding 40,000 events of all eight ids, and a list longer than one
+   pass of the kernel's grid.
 3. The chunk vote kernel against its plain version, bitwise: both pad
    layouts on the E. coli cap-overflow chunks (int32, pos -1) and the
-   E. coli events (uint8, vocab 255), tile_p 128/256/512 x e_sub 4/8
+   E. coli events (uint8, vocab 255; it equals kernel A's counts plus
+   the overflow kernel's on the E. coli list), tile_p 128/256/512 x e_sub 4/8
    on a 3 M-event skewed stream, two chunks per step at e_sub 4; deep
    skewed tiles (one 300 chunks deep per step, tiles of pad chunks only,
    tiles with no chunk) at tile_p 128/256/512/2048 in both layouts and
@@ -32,15 +40,16 @@ Phases, in order; any failure raises and exits non-zero:
    "xla", each FASTA byte-identical to the port's backend="host" run
    and each stderr identical with the clock masked.  The kernels'
    launch counters are zeroed just before each run and read just after:
-   lanes launches kernel A and the chunk kernel, mxu the chunk kernel
-   and no lanes kernel, xla no hand kernel.  Per-stage times are
-   printed.
+   lanes launches kernel A and the overflow kernel and no chunk kernel,
+   mxu the chunk kernel and no other, xla no hand kernel.  Per-stage
+   times are printed.
 5. The other entry points at full size, each with the counters zeroed
    before and read after, each result equal to the host fold's counts:
    LanesPolisher with bodies "packed" and "cmp" on the E. coli byte pack
-   (entry point lanes_vote_bytes; its decisions equal the host
-   consensus), dense_counts_lanes(body="packed8", cap=True) on all
-   E. coli events (lanes_vote_packed8), and dense_counts_chunks with
+   (entry point lanes_vote_bytes and the overflow kernel; its decisions
+   equal the host consensus), dense_counts_lanes(body="packed8",
+   cap=True) on all E. coli events (lanes_vote_packed8 and the overflow
+   kernel), and dense_counts_chunks with
    fused "split", "fused" and "unfused" plus two chunks per step
    (chunk_vote).
 6. Kernel and plain-version times with CUDA events, one PyTorch library
@@ -51,33 +60,35 @@ Phases, in order; any failure raises and exits non-zero:
    that are not pads).  The chunk vote kernel is
    timed with its wrapper's device work (order check and tile prefix),
    alone, and as a whole ``chunk_counts`` call, on the E. coli pileup,
-   the E. coli overflow chunks and the repeat-rich pileup.  The chunk
-   kernel's second yardstick on the lanes path: the scatter-add of the
-   same overflow events (``add_overflow_counts``, the JAX package's
-   scatter route of the fold, which the port does not take) on the
-   E. coli and repeat-rich overflow lists, its counts bitwise equal to
-   the chunk kernel's and to its plain version; times of the call on
-   device arrays, of its index_put_ alone, of the call with its upload,
-   and of the chunk route as the lanes path runs it (host chunking
-   included), beside phase 4's kernel_b stage.
+   the E. coli overflow chunks and the repeat-rich pileup.  The
+   overflow fold on the E. coli and repeat-rich overflow lists: the
+   overflow kernel alone (its bound: 5 B an event and each distinct
+   (pos, vid) word read and written once), with one event (the launch
+   floor), as an ``overflow_counts`` call on device arrays and with its
+   upload; its plain version (``add_overflow_counts``, the JAX
+   package's scatter route), ``index_put_`` alone and ``torch.bincount``
+   of vid * width + pos on the same events; and the chunk route that
+   the lanes path took before (host ``prepare_chunks``, upload, chunk
+   kernel, add), whose counts equal the kernel's; beside phase 4's
+   kernel_b stage.
 7. Windowed polish of the E. coli workload at 1 Mi windows (five
-   windows, POLYPOLISH_TPU_WINDOW_MIN=1).  First kernel A and the chunk
-   kernel against their plain versions, bitwise, on the second window
-   and the tail window at the shapes the device twin gives them (pack
-   from the window origin, overflow chunks of the window), their sum
-   equal to the host fold of the window.  Then the device twin with
+   windows, POLYPOLISH_TPU_WINDOW_MIN=1).  First kernel A and the
+   overflow kernel against their plain versions, bitwise, on the second
+   window and the tail window at the shapes the device twin gives them
+   (pack and overflow list from the window origin), their sum equal to
+   the host fold of the window.  Then the device twin with
    POLYPOLISH_TPU_WINDOW_DEPTH 1, 2, 3, 2 and 1 (accepted, no effect:
    the windows run in turn) and the host twin, each FASTA and stderr
    equal to the unwindowed host run of phase 4; kernel A launched once
-   per window and the chunk kernel once per window with cap-overflow
-   events.  Wall times with no synchronising timer, and the stage split
-   (per window) with one.
+   per window and the overflow kernel once per window with cap-overflow
+   events, no chunk kernel.  Wall times with no synchronising timer, and
+   the stage split (per window) with one.
 8. One 33.6 Mb contig (benchmarks/workload.py, paired 150 bp reads at
    50x) at the default window settings: 8 Mb windows (four full ones
    and a tail).  The kernels against their plain versions and the host
    window fold on the second and the tail window as in phase 7, then
    the device twin against the host twin, with the per-window stage
-   times and the device twin's peak device memory.
+   times and the device twin's peak device memory (reset before it).
 9. ``filter`` on the E. coli, repeat-rich and repeats16 (a 5 kb segment
    in 16 copies) workloads, each against the same run with the grid
    threshold raised so that numpy decides every verdict (output SAMs
@@ -98,8 +109,9 @@ Phases, in order; any failure raises and exits non-zero:
 11. ``batch --backend device`` over a six-job manifest (ecoli50x,
    repeats and repeats16, each twice) with --workers 1 and 3: every
    output equal to its genome's host FASTA, kernel A launched six
-   times and the chunk kernel once per job with cap-overflow events;
-   then --resume, which skips all six and launches nothing.
+   times and the overflow kernel once per job with cap-overflow events,
+   no chunk kernel; then --resume, which skips all six and launches
+   nothing.
 12. ``--backend auto`` and ``--pod-shards``: the measured link, the
    cost model's prediction for the E. coli SAM bytes, the calibration
    constants as this run measures them (medians of three warm host and
@@ -111,14 +123,14 @@ Phases, in order; any failure raises and exits non-zero:
    ``polish(backend="sharded")`` on E. coli at grids 1x1 and 2x2 and on
    repeats at 2x1 and 1x2: FASTA and stderr equal to phase 4's host
    run, kernel A launched once per grid cell (the mesh pack, no cap, so
-   no chunk kernel), every kernel call held bitwise against its plain
+   no overflow kernel), every kernel call held bitwise against its plain
    version (capture_calls); the mesh pack's bytes, its block count,
    stage times and peak device memory; kernel A timed on the 1x1
    E. coli mesh pack.  Then two ranks of ``polish --distributed`` with
    POLYPOLISH_TPU_POD_DEVICE_VOTES=1 on E. coli, both on ``cuda:0``
    over a localhost gloo group: rank 0's FASTA and stderr (but for the
    "Pod mode:" line and gloo's lines) equal the host run, rank 1's
-   stdout is empty, each rank reports kernel A once and the chunk
+   stdout is empty, each rank reports kernel A once and the overflow
    kernel once if its pack had cap-overflow events, and leaves its
    group.  Last, two ranks of ``batch --shard-across-hosts --backend
    device`` over phase 11's six jobs: three each, every output equal to
@@ -330,7 +342,8 @@ def main() -> int:
 
     R_SUB, TILE_W = vote_lanes.R_SUB, vote_lanes.TILE_W
     LANES = ("lanes_vote_packed4", "lanes_vote_bytes", "lanes_vote_packed8")
-    errs = {k: 0 for k in LANES + ("chunk_vote",)}
+    KERNELS = LANES + ("chunk_vote", "overflow_vote")
+    errs = {k: 0 for k in KERNELS}
 
     # -- phase 2: lanes vote kernel vs plain --------------------------
     t0 = time.monotonic()
@@ -344,6 +357,7 @@ def main() -> int:
         # copies: the pack's arrays alias native memory that close() frees
         e_vb = torch.from_numpy(pack.vb).to(dev, copy=True)
         e_bt = torch.from_numpy(pack.block_tile).to(dev, copy=True)
+        e_bt_host = pack.block_tile.copy()
         e_ntiles = pack.n_tiles
         ov_pos = pack.ov_pos.astype(np.int64)
         ov_vid = pack.ov_vid.astype(np.int32)
@@ -365,9 +379,11 @@ def main() -> int:
     b_bt = torch.from_numpy(h_bt8).to(dev)
     n_vb = torch.from_numpy(vote_lanes.to_packed8(h_vb8, R_SUB)).to(dev)
 
-    def check_lanes(label, vb, bt, n_tiles, r_sub, tile_w, body="packed4"):
+    def check_lanes(label, vb, bt, n_tiles, r_sub, tile_w, body="packed4",
+                    **kwargs):
         entry = vote_lanes.BODIES[body][1]
-        got = vote_lanes.lanes_counts(vb, bt, n_tiles, r_sub, tile_w, body)
+        got = vote_lanes.lanes_counts(vb, bt, n_tiles, r_sub, tile_w, body,
+                                      **kwargs)
         want = vote_lanes.lanes_counts_plain(vb, bt, n_tiles, r_sub, tile_w,
                                              body)
         torch.cuda.synchronize()
@@ -465,7 +481,70 @@ def main() -> int:
                 torch.from_numpy(bytes_.view(np.int32)[..., 0]).to(dev),
                 torch.from_numpy(bt).to(dev), sl_tiles, R_SUB, sl_tile_w)
     del bytes_
-    print(f"phase 2 (lanes kernel): {time.monotonic() - t0:.1f} s")
+
+    # the overflow vote kernel against its plain version, adding into
+    # kernel A's counts of the E. coli pack: the list as the packer
+    # leaves it, shuffled, with dropped and wrapped entries, and from
+    # views off a 16-byte boundary; one deep position; a list longer than
+    # one pass of the kernel's grid; an empty list launches nothing
+    e_width = e_ntiles * TILE_W
+    d_eop, d_eov = (torch.from_numpy(a).to(dev) for a in e_ov)
+    e_full = check_overflow(errs, "E. coli overflow list (as packed)",
+                            e_counts, d_eop, d_eov)
+    check(int((e_full - e_counts).sum()) == int((e_ov[1] < 8).sum()),
+          "E. coli overflow list: votes lost")
+    perm = torch.from_numpy(rng.permutation(e_ov[0].size)).to(dev)
+    got = check_overflow(errs, "E. coli overflow list shuffled", e_counts,
+                         d_eop[perm], d_eov[perm])
+    check(torch.equal(got, e_full), "shuffled list != sorted list")
+    extra = np.array([[e_width, 1], [e_width + 7, 2], [2**31 - 1, 3],
+                      [-1, 4], [-e_width, 5], [-e_width - 1, 6], [5, 8],
+                      [7, 255]], np.int64)
+    got = check_overflow(
+        errs, "E. coli overflow list with vid >= 8, pos >= width and "
+        "pos < 0", e_counts,
+        torch.cat([d_eop, torch.from_numpy(extra[:, 0].astype(np.int32))
+                   .to(dev)]),
+        torch.cat([d_eov, torch.from_numpy(extra[:, 1].astype(np.uint8))
+                   .to(dev)]))
+    wrapped = (got - e_full).cpu()
+    check(int(wrapped.sum()) == 2 and int(wrapped[4, e_width - 1]) == 1
+          and int(wrapped[5, 0]) == 1,
+          "dropped or wrapped overflow entries counted wrong")
+    got = check_overflow(
+        errs, "E. coli overflow list from views off a 16-byte boundary",
+        e_counts,
+        torch.cat([d_eop[:3], d_eop])[3:], torch.cat([d_eov[:3], d_eov])[3:])
+    check(torch.equal(got, e_full), "unaligned views != aligned list")
+    hot = e_width // 2 + 5
+    deep_pos = np.concatenate([np.arange(hot - 600, hot, 3),
+                               np.full(40_000, hot),
+                               np.arange(hot + 1, hot + 601, 3)])
+    deep_vid = np.concatenate([rng.integers(0, 8, 200),
+                               np.repeat(np.arange(8), 5000),
+                               rng.integers(0, 8, 200)])
+    got = check_overflow(errs, "one position 40,000 events deep", e_counts,
+                         *(torch.from_numpy(a).to(dev) for a in (
+                             deep_pos.astype(np.int32),
+                             deep_vid.astype(np.uint8))))
+    check(((got - e_counts)[:, hot] == 5000).all().item(),
+          "deep position counted wrong")
+    n_grid = vote_lanes._overflow_kernel().overflow_vote_grid_events()
+    long_pos = np.sort(rng.integers(0, e_width, n_grid + 12_345)
+                       ).astype(np.int32)
+    check_overflow(errs, f"{long_pos.size} events (one pass of the grid "
+                   f"is {n_grid})", e_counts,
+                   *(torch.from_numpy(a).to(dev) for a in (
+                       long_pos, rng.integers(0, 8, long_pos.size)
+                       .astype(np.uint8))))
+    before = vote_lanes.overflow_counts.launches
+    got = vote_lanes.overflow_counts(e_counts.clone(), d_eop[:0], d_eov[:0])
+    check(torch.equal(got, e_counts)
+          and vote_lanes.overflow_counts.launches == before,
+          "an empty overflow list changed the counts or launched")
+    del got, wrapped, perm, long_pos
+    print(f"phase 2 (lanes and overflow kernels): "
+          f"{time.monotonic() - t0:.1f} s")
 
     # -- phase 3: chunk vote kernel vs plain --------------------------
     t0 = time.monotonic()
@@ -501,12 +580,11 @@ def main() -> int:
     u_tiles = u8[3]
     u_counts = check_chunks("E. coli events (uint8, pad vocab 255)",
                             u_cp, u_cv, u_ct, u_tiles)
-    # both layouts add up to the same pileup: lanes + overflow == chunks
-    full = e_counts + vote_chunks.chunk_counts_plain(o_cp, o_cv, o_ct,
-                                                     ov_tiles)[:, :p_pad]
-    check(torch.equal(full, u_counts[:, :p_pad]),
+    # both layouts add up to the same pileup: kernel A's counts plus the
+    # overflow kernel's fold of the list == the chunks' counts
+    check(torch.equal(e_full, u_counts[:, :p_pad]),
           "lanes + overflow counts != uint8 chunk counts")
-    del u8, u_counts, full
+    del u8, u_counts, e_full
 
     # tile_p / e_sub / chunks_per_step geometry on a skewed stream
     pos = np.concatenate([rng.integers(0, p_sk, n_sk - 200_000),
@@ -566,12 +644,16 @@ def main() -> int:
     r_pack = r_pr.lanes(r_name, R_SUB, TILE_W, num_positions=_pad_bucket(r_P),
                         packed4=True, cap=True)
     check(r_pack is not None, "repeats lane pack")
-    try:  # the repeats overflow list, for phase 6's scatter yardstick
+    try:  # the repeats overflow list, for phase 6's timings
         r_ov = (r_pack.ov_pos.copy(), r_pack.ov_vid.copy())
         r_ntiles = r_pack.n_tiles
     finally:
         r_pack.close()
     r_pr.close()
+    check_overflow(errs, "repeats overflow list (as packed)",
+                   torch.zeros((8, r_ntiles * TILE_W), dtype=torch.int32,
+                               device=dev),
+                   *(torch.from_numpy(a).to(dev) for a in r_ov))
     check_chunks(f"repeats events (uint8; deepest tile {r_deepest} chunks)",
                  r_cp, r_cv, r_ct, r_tiles)
     print(f"phase 3 (chunk kernel): {time.monotonic() - t0:.1f} s")
@@ -582,10 +664,12 @@ def main() -> int:
     def zero_counts():
         vote_lanes.lanes_counts.launches.clear()
         vote_chunks.chunk_counts.launches = 0
+        vote_lanes.overflow_counts.launches = 0
 
     def read_counts():
         got = {k: vote_lanes.lanes_counts.launches[k] for k in LANES}
         got["chunk_vote"] = vote_chunks.chunk_counts.launches
+        got["overflow_vote"] = vote_lanes.overflow_counts.launches
         for k, n in got.items():
             launches[k] += n
         return got
@@ -610,23 +694,24 @@ def main() -> int:
             total = time.monotonic() - t0
             counts = read_counts()
             runs[path] = (out.getvalue(), _CLOCK.sub("", err.getvalue()))
-            stages = " ".join(f"{k} {v:.3f}"
-                              for k, v in timer.seconds.items())
+            stages = fmt_stages(timer.seconds)
             print(f"e2e {case} path={path}: total {total:.3f} s | {stages} "
                   f"| launches {counts} | lengths {lengths}")
             n_lanes = sum(counts[k] for k in LANES)
             if path == "lanes":
                 kernel_b_stage[case] = timer.seconds.get("kernel_b", 0)
                 check(counts["lanes_vote_packed4"] > 0
-                      and counts["chunk_vote"] > 0,
-                      f"{case}: kernels not launched on the lanes path "
-                      f"{counts}")
+                      and counts["overflow_vote"] > 0
+                      and counts["chunk_vote"] == 0,
+                      f"{case}: the lanes path must launch kernel A and "
+                      f"the overflow kernel, no chunk kernel {counts}")
             elif path == "mxu":
-                check(counts["chunk_vote"] > 0 and n_lanes == 0,
+                check(counts["chunk_vote"] > 0 and n_lanes == 0
+                      and counts["overflow_vote"] == 0,
                       f"{case}: mxu path must launch chunk_vote and no "
-                      f"lanes kernel {counts}")
+                      f"other kernel {counts}")
             else:
-                check(n_lanes == 0 and counts["chunk_vote"] == 0,
+                check(sum(counts.values()) == 0,
                       f"{case}: {path} path launched a hand kernel "
                       f"{counts}")
         for path, _ in paths[1:]:
@@ -662,9 +747,9 @@ def main() -> int:
                 pad(invalid_thr, i32max, np.int32), pad(low, True, bool),
                 pad(orig_id, 0, np.int32))
 
-    def check_path(label, counts, want_launch):
+    def check_path(label, counts, *want_launch):
         got = read_counts()
-        check(got[want_launch] > 0,
+        check(all(got[k] > 0 for k in want_launch),
               f"{label}: {want_launch} not launched {got}")
         check(torch.equal(counts.cpu(), host_counts),
               f"{label}: counts != host fold counts")
@@ -679,7 +764,7 @@ def main() -> int:
         check(np.array_equal(status[:P].cpu().numpy(), host_status),
               f"LanesPolisher body {body}: status != host consensus")
         check_path(f"LanesPolisher(body={body!r}).forward_pack",
-                   counts[:, :P], "lanes_vote_bytes")
+                   counts[:, :P], "lanes_vote_bytes", "overflow_vote")
     del h_vb8, model, counts, status
 
     ev_pos, ev_vid, _ = pr.events(name)
@@ -689,7 +774,7 @@ def main() -> int:
                                            body="packed8", cap=True,
                                            device=dev)
     check_path("dense_counts_lanes(body='packed8', cap=True)", counts,
-               "lanes_vote_packed8")
+               "lanes_vote_packed8", "overflow_vote")
     for fused, k in (("split", 1), ("fused", 1), ("unfused", 1),
                      ("unfused", 2)):
         zero_counts()
@@ -801,15 +886,15 @@ def main() -> int:
             print(f"{label}: chunk_counts call {x['wrapper_ms']:.4f} ms; "
                   f"deepest tile {x['deepest_tile_chunks']} chunks, last "
                   f"tile (with the pad chunks) {x['last_tile_chunks']}")
-    # the chunk kernel's second yardstick on the lanes path, the scatter-
-    # add of the same overflow events (the JAX package's scatter route)
-    # on the E. coli and repeats overflow lists: its counts bitwise equal
-    # to the chunk kernel's and to the plain version; CUDA-event times of
-    # add_overflow_counts on device-resident arrays (the index_put_ after
-    # the drop mask's compaction, which waits for the device), of the
-    # index_put_ alone, of the call with its upload and of the chunk
-    # route as the lanes path runs it (host prepare_chunks, upload, chunk
-    # kernel, add)
+    # the overflow fold on the E. coli and repeats overflow lists, on
+    # device arrays unless named: the overflow kernel alone, with one
+    # event (the launch floor), the overflow_counts call, the call with
+    # its upload; its plain version (add_overflow_counts, the JAX
+    # package's scatter route), index_put_ alone and torch.bincount of
+    # vid * width + pos on the same events; the chunk route that the
+    # lanes path took before (host prepare_chunks, upload, chunk kernel,
+    # add).  Every route's counts equal the kernel's.
+    lib_o = vote_lanes._overflow_kernel()
     ov_timed = {}
     for label, (op, ovid), n_tiles in (("E. coli", e_ov, e_ntiles),
                                        ("repeats", r_ov, r_ntiles)):
@@ -820,8 +905,8 @@ def main() -> int:
 
         d_op = torch.from_numpy(op).to(dev)
         d_ov = torch.from_numpy(ovid).to(dev)
-        got = vote_lanes.add_overflow_counts(zeros(), d_op, d_ov)
-        via_host = vote_lanes.add_overflow_counts(zeros(), op, ovid)
+        got = check_overflow(errs, f"{label} overflow list onto zeros",
+                             zeros(), d_op, d_ov)
         cpu = vote_lanes.add_overflow_counts(zeros("cpu"), op, ovid)
 
         def chunk_route(counts):
@@ -833,50 +918,71 @@ def main() -> int:
             return counts
 
         chunk = chunk_route(zeros())
-        cp, cv, ct, nt = vote_chunks.prepare_chunks(
-            op.astype(np.int64), ovid.astype(np.int32), width)
-        plain = vote_chunks.chunk_counts_plain(
-            *(torch.from_numpy(a).to(dev) for a in (cp, cv, ct)),
-            nt)[:, :width]
         torch.cuda.synchronize()
-        err = max(max_abs_err(got, plain), max_abs_err(got, chunk),
-                  max_abs_err(via_host, got), max_abs_err(cpu, got.cpu()))
+        err = max(max_abs_err(got, chunk), max_abs_err(cpu, got.cpu()))
         check(err == 0 and int(got.sum()) == int((ovid < 8).sum()),
-              f"{label} overflow: scatter != chunk kernel / plain (max err "
-              f"{err})")
+              f"{label} overflow: kernel != chunk route / CPU plain (max "
+              f"err {err})")
         acc = zeros()
-        rows, cols = d_ov.to(torch.int64), d_op.to(torch.int64)
+
+        def launch(n=op.size):
+            check(lib_o.overflow_vote(d_op.data_ptr(), d_ov.data_ptr(), n,
+                                      acc.data_ptr(), width, stream) == 0,
+                  "overflow_vote launch")
+
+        keep = d_ov < 8
+        rows, cols = d_ov[keep].to(torch.int64), d_op[keep].to(torch.int64)
         ones = torch.ones_like(rows, dtype=torch.int32)
+        keys = rows * width + cols
+        distinct = int(torch.unique(keys).numel())
         ov_timed[label] = {
-            "events": int(op.size),
-            "scatter_ms": cuda_ms(lambda: vote_lanes.add_overflow_counts(
+            "events": int(op.size), "distinct": distinct,
+            "ms": cuda_ms(launch, TIMED_LAUNCHES),
+            "floor_ms": cuda_ms(lambda: launch(1), TIMED_LAUNCHES),
+            "wrapper_ms": cuda_ms(lambda: vote_lanes.overflow_counts(
+                acc, d_op, d_ov), TIMED_LAUNCHES),
+            "upload_ms": cuda_ms(lambda: vote_lanes.overflow_counts(
+                acc, *(torch.from_numpy(a).to(dev) for a in (op, ovid))),
+                TIMED_LAUNCHES),
+            "plain_ms": cuda_ms(lambda: vote_lanes.add_overflow_counts(
                 acc, d_op, d_ov), TIMED_LAUNCHES),
             "index_put_ms": cuda_ms(lambda: acc.index_put_(
                 (rows, cols), ones, accumulate=True), TIMED_LAUNCHES),
-            "scatter_route_ms": cuda_ms(
-                lambda: vote_lanes.add_overflow_counts(acc, op, ovid),
-                TIMED_LAUNCHES),
+            "bincount_ms": cuda_ms(lambda: torch.bincount(
+                keys, minlength=8 * width), TIMED_LAUNCHES),
             "chunk_route_ms": cuda_ms(lambda: chunk_route(acc), 5),
         }
         x = ov_timed[label]
-        print(f"overflow fold, {label} ({x['events']} events, {width} "
-              f"positions): scatter counts == chunk kernel == plain; "
-              f"add_overflow_counts on the card {x['scatter_ms']:.4f} ms "
-              f"(index_put_ alone {x['index_put_ms']:.4f} ms), with its "
-              f"upload {x['scatter_route_ms']:.4f} ms; chunk route "
+        # bytes: 5 an event read once, each distinct (pos, vid) word of
+        # the counts read and written once; one compare an event
+        x["bytes"] = 5 * x["events"] + 8 * distinct
+        x["bound_ms"], x["bound_by"] = bound(x["bytes"], x["events"])
+        print(f"overflow fold, {label} ({x['events']} events, {distinct} "
+              f"distinct (pos, vid), {width} positions): kernel "
+              f"{x['ms']:.4f} ms, bound {x['bound_ms']:.5f} ms "
+              f"({x['bound_by']}, {x['bytes']} B), one-event launch "
+              f"{x['floor_ms']:.4f} ms; overflow_counts call "
+              f"{x['wrapper_ms']:.4f} ms, with its upload "
+              f"{x['upload_ms']:.4f} ms; plain add_overflow_counts "
+              f"{x['plain_ms']:.4f} ms, index_put_ {x['index_put_ms']:.4f} "
+              f"ms, torch.bincount {x['bincount_ms']:.4f} ms; chunk route "
               f"(prepare_chunks, upload, kernel, add) "
-              f"{x['chunk_route_ms']:.4f} ms")
+              f"{x['chunk_route_ms']:.4f} ms; counts equal")
     del acc
-    print(f"overflow fold, E. coli: chunk kernel "
-          f"{timed['chunk_vote (overflow fold)'][0]:.4f} ms; phase 4 "
-          f"lanes stage kernel_b {kernel_b_stage['ecoli50x']:.4f} s "
-          f"(repeats {kernel_b_stage['repeats']:.4f} s)")
+    print(f"overflow fold: phase 4 lanes stage kernel_b "
+          f"{kernel_b_stage['ecoli50x']:.4f} s on E. coli, "
+          f"{kernel_b_stage['repeats']:.4f} s on repeats")
     # the whole lanes_counts call: the host tile_row_start (block_tile's
-    # copy to the host waits for the stream), its upload, the launches
+    # copy to the host waits for the stream), its upload, the launches;
+    # then as LanesPolisher calls it, with block_tile's host array
     wrapper_ms = cuda_ms(lambda: vote_lanes.lanes_counts(
         e_vb, e_bt, e_ntiles, R_SUB, TILE_W), TIMED_LAUNCHES)
+    wrapper_host_ms = cuda_ms(lambda: vote_lanes.lanes_counts(
+        e_vb, e_bt, e_ntiles, R_SUB, TILE_W, block_tile_host=e_bt_host),
+        TIMED_LAUNCHES)
     print(f"lanes_vote_packed4: lanes_counts call {wrapper_ms:.4f} ms on "
-          f"the E. coli packed4 pack")
+          f"the E. coli packed4 pack, {wrapper_host_ms:.4f} ms given "
+          f"block_tile's host array")
     for label, bt in (("E. coli", e_bt), ("padded E. coli", pad_bt)):
         rows = np.diff(vote_lanes.tile_row_start(
             bt.cpu().numpy(), e_ntiles,
@@ -888,7 +994,7 @@ def main() -> int:
 
     # -- phases 7-9: windowed polish, default windows, filter and full -
     ctx = dict(dev=dev, zero_counts=zero_counts, read_counts=read_counts,
-               lanes=LANES, errs=errs, check_lanes=check_lanes,
+               kernels=KERNELS, errs=errs, check_lanes=check_lanes,
                check_chunks=check_chunks, launches=launches)
     phase_windowed_ecoli(ctx, cases["ecoli50x"], host_runs["ecoli50x"])
     phase_default_windows(ctx)
@@ -936,20 +1042,33 @@ def main() -> int:
                        "padded_plain_ms": timed[label][1],
                        "padded_bound_ms": bounds[label][0],
                        "padded_library_ms": timed[label][2],
-                       "wrapper_ms": wrapper_ms})
-    # B's second yardstick on the lanes path: the scatter-add's one
-    # PyTorch call on the same overflow events (E. coli; repeats)
-    for prefix, label in (("ov", "E. coli"), ("repeats_ov", "repeats")):
+                       "wrapper_ms": wrapper_ms,
+                       "wrapper_host_block_tile_ms": wrapper_host_ms})
+    # the overflow fold on the E. coli list; the same on repeats, and
+    # the other PyTorch calls on the same events, as extra keys
+    x = ov_timed["E. coli"]
+    overflow = {"name": "overflow_vote", "route": "cuda",
+                "source": "polypolish_tpu_torch/csrc/overflow_vote.cu",
+                "replaces": f"{vp}:144 (split, over the overflow list)",
+                "launches": launches["overflow_vote"],
+                "max_abs_err": errs["overflow_vote"], "ms": x["ms"],
+                "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"],
+                "bound_by": x["bound_by"], "library_ms": x["index_put_ms"]}
+    for prefix, label in (("", "E. coli"), ("repeats_", "repeats")):
         x = ov_timed[label]
-        kernels[-1].update({f"{prefix}_scatter_ms": x["scatter_ms"],
-                            f"{prefix}_index_put_ms": x["index_put_ms"],
-                            f"{prefix}_scatter_route_ms":
-                                x["scatter_route_ms"],
-                            f"{prefix}_chunk_route_ms": x["chunk_route_ms"]})
+        overflow.update({f"{prefix}{k}": x[k] for k in (
+            "events", "distinct", "floor_ms", "wrapper_ms", "upload_ms",
+            "bincount_ms", "chunk_route_ms")})
+        if prefix:
+            overflow.update({f"{prefix}{k}": x[k] for k in (
+                "ms", "plain_ms", "bound_ms", "index_put_ms")})
+    overflow["kernel_b_stage_s"] = kernel_b_stage["ecoli50x"]
+    overflow["repeats_kernel_b_stage_s"] = kernel_b_stage["repeats"]
+    kernels.append(overflow)
     for role in ("overflow fold", "repeats"):
         label = f"chunk_vote ({role})"
         key = role.replace(" ", "_")
-        kernels[-1].update({f"{key}_ms": timed[label][0],
+        kernels[3].update({f"{key}_ms": timed[label][0],
                             f"{key}_plain_ms": timed[label][1],
                             f"{key}_bound_ms": bounds[label][0],
                             f"{key}_library_ms": timed[label][2]})
@@ -1017,12 +1136,12 @@ def polish_run(ctx, fasta, sams, timer=None, **kwargs):
 def window_plan(fasta, sams, w_pad, ctx=None, check_windows=()):
     """(windows, windows with cap-overflow events) of the device twin
     over a single-contig workload: what it must launch kernel A and
-    the chunk kernel for.  For each window index in ``check_windows``
+    the overflow kernel for.  For each window index in ``check_windows``
     (negative: from the end), kernel A on that window's pack and the
-    chunk kernel on its overflow chunks are held bitwise against their
+    overflow kernel on its overflow list are held bitwise against their
     plain versions on the same tensors, and their sum against the host
     fold of the window (and zero on the pad positions past its end)."""
-    from polypolish_tpu_torch.ops import vote_chunks, vote_lanes
+    from polypolish_tpu_torch.ops import vote_lanes
 
     pr, name, P, _, _ = parse(fasta, sams)
     n_want = -(-P // w_pad)
@@ -1040,7 +1159,7 @@ def window_plan(fasta, sams, w_pad, ctx=None, check_windows=()):
                 if k in to_check:
                     check_window_kernels(ctx, pr, name, pack, w_lo,
                                          min(P, w_lo + w_pad), w_pad,
-                                         vote_chunks, vote_lanes)
+                                         vote_lanes)
             finally:
                 pack.close()
     finally:
@@ -1049,10 +1168,27 @@ def window_plan(fasta, sams, w_pad, ctx=None, check_windows=()):
     return n_win, n_ov
 
 
+def check_overflow(errs, label, counts, ov_pos, ov_vid):
+    """The overflow vote kernel against its plain version, bitwise, each
+    adding the list (device tensors) onto a copy of ``counts``; returns
+    the kernel's counts."""
+    from polypolish_tpu_torch.ops import vote_lanes
+
+    got = vote_lanes.overflow_counts(counts.clone(), ov_pos, ov_vid)
+    want = vote_lanes.add_overflow_counts(counts.clone(), ov_pos, ov_vid)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    check(err == 0, f"overflow_vote != plain on {label} (max err {err})")
+    errs["overflow_vote"] = max(errs["overflow_vote"], err)
+    print(f"overflow_vote == plain on {label}: {ov_pos.numel()} events "
+          f"into {tuple(counts.shape)}, {int((got - counts).sum())} votes")
+    return got
+
+
 def check_window_kernels(ctx, pr, name, pack, w_lo, w_hi, w_pad,
-                         vote_chunks, vote_lanes):
-    """Kernel A and the chunk kernel against their plain versions on one
-    window of the device twin, at the shapes it gives them."""
+                         vote_lanes):
+    """Kernel A and the overflow kernel against their plain versions on
+    one window of the device twin, at the shapes it gives them."""
     dev, errs = ctx["dev"], ctx["errs"]
     label = f"window [{w_lo}, {w_hi}) of {w_pad}"
     n_tiles = w_pad // vote_lanes.TILE_W
@@ -1069,32 +1205,25 @@ def check_window_kernels(ctx, pr, name, pack, w_lo, w_hi, w_pad,
     total = got
     n_ov = int(pack.n_overflow)
     if n_ov:
-        cp, cv, ct, ov_tiles = vote_chunks.prepare_chunks(
-            pack.ov_pos.astype(np.int64), pack.ov_vid.astype(np.int32), w_pad)
-        cp, cv, ct = (torch.from_numpy(a).to(dev) for a in (cp, cv, ct))
-        got_b = vote_chunks.chunk_counts(cp, cv, ct, ov_tiles)
-        want_b = vote_chunks.chunk_counts_plain(cp, cv, ct, ov_tiles)
-        torch.cuda.synchronize()
-        err = max_abs_err(got_b, want_b)
-        check(err == 0, f"chunk_vote != plain on {label} overflow (max err "
-                        f"{err})")
-        errs["chunk_vote"] = max(errs["chunk_vote"], err)
-        total = total + got_b[:, :w_pad]
+        total = check_overflow(
+            errs, f"{label} overflow list", got,
+            *(torch.from_numpy(a).to(dev) for a in (pack.ov_pos,
+                                                    pack.ov_vid)))
     host = pr.fold_window(name, w_lo, w_hi, (5, 0.5, 0.2))[0]
     w_real = w_hi - w_lo
     check(np.array_equal(total[:, :w_real].cpu().numpy(), host)
           and int(total[:, w_real:].abs().sum()) == 0,
-          f"{label}: kernel A + chunk kernel counts != host window fold")
-    print(f"lanes_vote_packed4 and chunk_vote == plain on {label}: "
+          f"{label}: kernel A + overflow kernel counts != host window fold")
+    print(f"lanes_vote_packed4 and overflow_vote == plain on {label}: "
           f"{tuple(vb.shape)} rows, {n_ov} overflow events, "
           f"{int(want.sum())} + {n_ov} votes == host window fold, "
           f"{w_pad - w_real} pad positions empty")
 
 
 def check_window_launches(ctx, label, counts, n_win, n_ov):
-    want = {k: 0 for k in ctx["lanes"]}
+    want = {k: 0 for k in ctx["kernels"]}
     want["lanes_vote_packed4"] = n_win
-    want["chunk_vote"] = n_ov
+    want["overflow_vote"] = n_ov
     check(counts == want, f"{label}: launches {counts}, want {want}")
 
 
@@ -1111,7 +1240,8 @@ def laps_by_window(timer, first="fold"):
 
 
 def fmt_stages(stages):
-    return " ".join(f"{k} {v:.3f}" for k, v in stages.items())
+    # six decimals: the kernel stages take microseconds
+    return " ".join(f"{k} {v:.6f}" for k, v in stages.items())
 
 
 def phase_windowed_ecoli(ctx, case, host_ref):
@@ -1480,12 +1610,17 @@ def capture_calls(**wrappers):
         name = key[1]
 
         def call(*args, **kwargs):
-            check(not kwargs, f"{name} called with keywords {kwargs}")
-            # copies: a caller may free what a tensor aliases (a CPU
-            # tensor over a native pack) once the call returns
-            calls[name].append(tuple(a.clone() if torch.is_tensor(a) else a
-                                     for a in args))
-            return fn(*args)
+            # copies, taken before the call (overflow_counts adds in
+            # place): a caller may free what a tensor or array aliases
+            # (a native pack) once the call returns
+            def copy(a):
+                if torch.is_tensor(a):
+                    return a.clone()
+                return a.copy() if isinstance(a, np.ndarray) else a
+
+            calls[name].append((tuple(copy(a) for a in args),
+                                {k: copy(v) for k, v in kwargs.items()}))
+            return fn(*args, **kwargs)
 
         return call
 
@@ -1501,10 +1636,14 @@ def capture_calls(**wrappers):
 def check_captured(ctx, label, calls):
     """Each kernel call a main path made, run again through its wrapper
     and held bitwise against its plain version on the same tensors."""
-    for i, args in enumerate(calls.get("lanes_counts", ())):
-        ctx["check_lanes"](f"{label}, kernel A call {i}", *args)
-    for i, args in enumerate(calls.get("chunk_counts", ())):
-        ctx["check_chunks"](f"{label}, chunk kernel call {i}", *args)
+    for i, (args, kwargs) in enumerate(calls.get("lanes_counts", ())):
+        ctx["check_lanes"](f"{label}, kernel A call {i}", *args, **kwargs)
+    for i, (args, kwargs) in enumerate(calls.get("overflow_counts", ())):
+        check_overflow(ctx["errs"], f"{label}, overflow kernel call {i}",
+                       *args, **kwargs)
+    for i, (args, kwargs) in enumerate(calls.get("chunk_counts", ())):
+        ctx["check_chunks"](f"{label}, chunk kernel call {i}", *args,
+                            **kwargs)
 
 
 def phase_event_path(ctx, case, host_ref):
@@ -1552,7 +1691,7 @@ def phase_event_path(ctx, case, host_ref):
           "event path (device): FASTA != host FASTA")
     check(_CLOCK.sub("", err.getvalue()) == host_ref[1],
           "event path (device): stderr != host stderr")
-    want = {k: 0 for k in ctx["lanes"]}
+    want = {k: 0 for k in ctx["kernels"]}
     want["chunk_vote"] = 1
     check(counts == want, f"event path launches {counts}, want {want}")
     print(f"event path ecoli50x (device): total {total:.3f} s | "
@@ -1589,7 +1728,7 @@ def phase_event_path(ctx, case, host_ref):
                           cut_fasta, *inputs])
             check(fasta_out == native,
                   f"--pure-python {label} {backend}: FASTA != native host")
-            want = {k: 0 for k in ctx["lanes"]}
+            want = {k: 0 for k in ctx["kernels"]}
             want["chunk_vote"] = int(backend == "device")
             check(counts == want, f"--pure-python {label} {backend}: "
                                   f"launches {counts}, want {want}")
@@ -1627,13 +1766,14 @@ def phase_batch(ctx, cases, host_runs):
         for g, out_path in jobs:
             fasta, sams = cases[g]
             f.write(f"{fasta}\t{out_path}\t{','.join(sams)}\n")
-    want = {k: 0 for k in ctx["lanes"]}
+    want = {k: 0 for k in ctx["kernels"]}
     want["lanes_vote_packed4"] = len(jobs)
-    want["chunk_vote"] = sum(n_ov[g] for g, _ in jobs)
+    want["overflow_vote"] = sum(n_ov[g] for g, _ in jobs)
     walls = {}
     for workers in (1, 3):
         # the first run's kernel inputs are held against plain below
-        with (capture_calls(lanes_counts=True, chunk_counts=True)
+        with (capture_calls(lanes_counts=True, overflow_counts=True,
+                            chunk_counts=True)
               if workers == 1 else contextlib.nullcontext({})) as calls:
             _, err, total, counts = cli_run(
                 ctx, ["batch", "--backend", "device", "--workers",
@@ -1652,8 +1792,12 @@ def phase_batch(ctx, cases, host_runs):
         # every lane pack and overflow list of the six jobs (ecoli50x,
         # repeats and repeats16, each twice), kernel against plain
         if calls:
-            check(len(calls["lanes_counts"]) == len(jobs),
-                  f"batch captured {len(calls['lanes_counts'])} lane packs")
+            check(len(calls["lanes_counts"]) == len(jobs)
+                  and len(calls["overflow_counts"]) == want["overflow_vote"]
+                  and not calls["chunk_counts"],
+                  f"batch captured {len(calls['lanes_counts'])} lane packs, "
+                  f"{len(calls['overflow_counts'])} overflow lists, "
+                  f"{len(calls['chunk_counts'])} chunk streams")
             check_captured(ctx, f"batch --workers {workers}", calls)
         del calls
     _, err, total, counts = cli_run(
@@ -1774,7 +1918,7 @@ from polypolish_tpu_torch.native import runs
 from polypolish_tpu_torch.ops import vote_chunks, vote_lanes
 
 packs = {"packs": 0, "with_overflow": 0}
-max_abs_err = {"lanes_vote_packed4": 0, "chunk_vote": 0}
+max_abs_err = {"lanes_vote_packed4": 0, "chunk_vote": 0, "overflow_vote": 0}
 lanes = runs.ParsedRuns.lanes
 
 
@@ -1786,10 +1930,12 @@ def counted(self, *args, **kwargs):
     return pack
 
 
-def held(entry, fn, plain):
-    def call(*args):
-        got = fn(*args)
-        want = plain(*args)
+def held(entry, fn, plain, in_place=False):
+    def call(*args, **kwargs):
+        # an in-place wrapper's plain version adds onto its own copy
+        plain_args = (args[0].clone(),) + args[1:] if in_place else args
+        got = fn(*args, **kwargs)
+        want = plain(*plain_args)
         if got.shape != want.shape:
             raise AssertionError(f"{entry}: {tuple(got.shape)} != plain "
                                  f"{tuple(want.shape)}")
@@ -1805,13 +1951,16 @@ polisher.lanes_counts = held("lanes_vote_packed4", polisher.lanes_counts,
                              vote_lanes.lanes_counts_plain)
 polisher.chunk_counts = held("chunk_vote", polisher.chunk_counts,
                              vote_chunks.chunk_counts_plain)
+polisher.overflow_counts = held("overflow_vote", polisher.overflow_counts,
+                                vote_lanes.add_overflow_counts, True)
 t0 = time.monotonic()
 rc = cli.main(sys.argv[1:])
 print("RANK " + json.dumps(dict(
     rc=rc, wall_s=time.monotonic() - t0, left_group=not dist.is_initialized(),
     lanes=dict(vote_lanes.lanes_counts.launches),
-    chunk_vote=vote_chunks.chunk_counts.launches, max_abs_err=max_abs_err,
-    **packs)), file=sys.stderr)
+    chunk_vote=vote_chunks.chunk_counts.launches,
+    overflow_vote=vote_lanes.overflow_counts.launches,
+    max_abs_err=max_abs_err, **packs)), file=sys.stderr)
 sys.exit(rc)
 """
 GLOO_LINE = re.compile(r"^\[[WIE]\d{4} [^\]]*\] \[c10d\].*\n?", re.M)
@@ -1857,13 +2006,14 @@ def run_ranks(argvs, envs):
 
 
 def check_rank_launches(ctx, label, info):
-    """A rank launched kernel A once per lane pack it made, the chunk
+    """A rank launched kernel A once per lane pack it made, the overflow
     kernel once per pack with cap-overflow events, nothing else, and
     every call equalled its plain version on the same tensors; adds the
     launches and the differences to the kernels line's."""
     want = {"lanes": {"lanes_vote_packed4": info["packs"]},
-            "chunk_vote": info["with_overflow"]}
+            "overflow_vote": info["with_overflow"], "chunk_vote": 0}
     got = {"lanes": {k: v for k, v in info["lanes"].items() if v},
+           "overflow_vote": info["overflow_vote"],
            "chunk_vote": info["chunk_vote"]}
     check(got == want and info["packs"] > 0 and info["left_group"],
           f"{label}: launches {got}, want {want}; left its group "
@@ -1872,7 +2022,8 @@ def check_rank_launches(ctx, label, info):
           f"{label}: a kernel call != plain (max err {info['max_abs_err']})")
     for k, n in info["lanes"].items():
         ctx["launches"][k] += n
-    ctx["launches"]["chunk_vote"] += info["chunk_vote"]
+    for k in ("overflow_vote", "chunk_vote"):
+        ctx["launches"][k] += info[k]
     for k, err in info["max_abs_err"].items():
         ctx["errs"][k] = max(ctx["errs"][k], err)
 
@@ -1929,18 +2080,20 @@ def phase_sharded_pod(ctx, cases, host_runs):
         mesh = make_mesh(*grid, devices=[dev] * n_cells)
         held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        with capture_calls(lanes_counts=True, chunk_counts=True) as calls:
+        with capture_calls(lanes_counts=True, overflow_counts=True,
+                           chunk_counts=True) as calls:
             fasta_out, err, total, counts, timer = polish_run(
                 ctx, *cases[case], StageTimer(sync_device=dev),
                 backend="sharded", mesh=mesh, kernel_variant="lanes")
         peak = torch.cuda.max_memory_allocated()
         check(fasta_out == host_runs[case][0], f"{label}: FASTA != host")
         check(err == host_runs[case][1], f"{label}: stderr != host")
-        want = {k: 0 for k in ctx["lanes"]}
-        want.update(lanes_vote_packed4=n_cells, chunk_vote=0)
+        want = {k: 0 for k in ctx["kernels"]}
+        want["lanes_vote_packed4"] = n_cells
         check(counts == want, f"{label}: launches {counts}, want {want}")
-        cells = calls["lanes_counts"]
-        check(len(cells) == n_cells and not calls["chunk_counts"],
+        cells = [args for args, _ in calls["lanes_counts"]]
+        check(len(cells) == n_cells and not calls["chunk_counts"]
+              and not calls["overflow_counts"],
               f"{label}: {len(cells)} kernel A calls captured")
         pack_bytes = sum(a[0].numel() * 4 + a[1].numel() * 4 for a in cells)
         deepest = max(last_block(a[0], R_SUB // 4) for a in cells)
@@ -1987,8 +2140,9 @@ def phase_sharded_pod(ctx, cases, host_runs):
     for r, (_, _, info) in enumerate(ranks):
         check_rank_launches(ctx, f"pod rank {r}", info)
         print(f"pod rank {r} (device votes, cuda:0): wall {info['wall_s']:.3f}"
-              f" s | launches {info['lanes']} + chunk_vote "
-              f"{info['chunk_vote']} | packs {info['packs']}, with overflow "
+              f" s | launches {info['lanes']} + overflow_vote "
+              f"{info['overflow_vote']} + chunk_vote {info['chunk_vote']} "
+              f"| packs {info['packs']}, with overflow "
               f"{info['with_overflow']} | max abs err vs plain "
               f"{info['max_abs_err']} | left its group")
     print(f"pod: two gloo ranks on cuda:0, {total:.3f} s; rank 0 FASTA and "
@@ -2018,7 +2172,8 @@ def phase_sharded_pod(ctx, cases, host_runs):
         check_rank_launches(ctx, f"batch rank {r}", info)
         print(f"batch --shard-across-hosts rank {r}: wall "
               f"{info['wall_s']:.3f} s | launches {info['lanes']} + "
-              f"chunk_vote {info['chunk_vote']} | max abs err vs plain "
+              f"overflow_vote {info['overflow_vote']} + chunk_vote "
+              f"{info['chunk_vote']} | max abs err vs plain "
               f"{info['max_abs_err']}")
     for g, out_path in jobs:
         with open(out_path) as f:

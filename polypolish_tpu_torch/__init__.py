@@ -8,8 +8,9 @@ rrwick/Polypolish v0.6.1, Rust), rebuilt for one NVIDIA Hopper GPU:
   walking, vocab interning, exact f64 depth and thresholds.
 - Device layer (PyTorch + hand-written CUDA kernels in ``csrc/``):
   integer vote counting over the lane-aligned pack (lanes vote kernel)
-  and the cap-overflow chunks (chunk vote kernel), then the elementwise
-  consensus over the (vocab, position) count tensor.
+  and its cap-overflow list (overflow vote kernel) or over the chunk
+  layout (chunk vote kernel), then the elementwise consensus over the
+  (vocab, position) count tensor.
 
 Outputs are byte-identical to ``polypolish_tpu``: all device math is
 integer.  The package imports neither jax nor polypolish_tpu.

@@ -83,7 +83,7 @@ struct Vec;
 // Per layout: events per 16-byte vector, vectors of each array in flight
 // per thread, and whether a vector's vocab is read only when one of its
 // positions counts (int32: pad is pos -1, so the vocab of an all-pad
-// vector is never needed, and the overflow fold's chunks are nearly all
+// vector is never needed, and a sparse stream's chunks are nearly all
 // pad; uint8 marks pad in vocab, so both arrays are read together).
 template <>
 struct Vec<uint8_t> {  // 16 events per 16-byte vector

@@ -4,8 +4,8 @@ polypolish_tpu/models/polisher.py).
 - ``LanesPolisher``: a lane pack goes in; the (8, P) count tensor and
   the compact per-position decisions come out.  On a CUDA device the
   votes run through the lanes vote kernel over the lane blocks (the
-  body's entry point) and the chunk vote kernel over the cap-overflow
-  list.
+  body's entry point) and the overflow vote kernel, which adds the
+  cap-overflow list into the lanes kernel's counts in place.
 - ``PolisherModel``: a chunk stream goes in (the mxu and xla polish
   paths); the votes run through the chunk vote kernel, or with
   ``use_kernel=False`` through a torch scatter-add (the JAX package's
@@ -16,12 +16,14 @@ calls run the kernels' plain PyTorch versions.
 
 The JAX package split long block streams into slabs for a scalar-memory
 limit of the TPU; one launch of the lanes vote kernel takes any block
-count, so there are no slabs here.  The overflow list always takes the
-chunk vote kernel, the counterpart of the Pallas kernel that the JAX
-package runs there on a TPU (its "mxu" overflow mode).  The port reads
-no POLYPOLISH_TPU_OV_MODE: the JAX package's other value, "scatter"
-(an XLA scatter-add, its default in interpret mode), gives bitwise the
-same counts, so the variable changes no output of either package.
+count, so there are no slabs here.  The JAX package folds the overflow
+list either through its chunk kernel (its "mxu" overflow mode, after a
+host pass that lays the list out as chunks over every tile) or through
+an XLA scatter-add ("scatter", its default in interpret mode); both
+give bitwise the same counts.  The port has one route, the overflow
+vote kernel over the list as the packer emits it, and reads no
+POLYPOLISH_TPU_OV_MODE: the variable changes no output of either
+package.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from polypolish_tpu_torch.ops.vote_lanes import (
     TILE_W,
     _rows_per_block,
     lanes_counts,
+    overflow_counts,
     to_packed4,
 )
 from polypolish_tpu_torch.utils.profiling import StageTimer
@@ -177,8 +180,11 @@ class LanesPolisher(nn.Module):
         pack: ``vb`` is the pack's rows (int32 packed4 rows for body
         packed4, where uint8 byte rows are converted here; uint8 or int8
         byte rows otherwise), ``block_tile`` its block->tile map, and
-        (ov_pos, ov_vid) the cap-overflow events.  The caller keeps the
-        pack alive until this returns."""
+        (ov_pos, ov_vid) the cap-overflow events (int32 positions and
+        uint8 vocab ids, as the packers emit them).  The uploads are
+        from pageable memory and have finished with the host arrays
+        when they return; the caller keeps the pack alive until this
+        returns."""
         if self.body == "packed4":
             if vb.dtype == np.uint8:
                 vb = to_packed4(vb, self.r_sub)
@@ -187,26 +193,23 @@ class LanesPolisher(nn.Module):
         elif vb.dtype not in (np.uint8, np.int8):
             raise ValueError(f"body {self.body}: vb must be uint8 or int8 "
                              f"byte rows; got {vb.dtype}")
+        has_ov = ov_pos is not None and len(ov_pos) > 0
         timer = self.timer
         with timer.stage("upload"):
             d_vb = torch.from_numpy(vb).to(self.device)
             d_bt = torch.from_numpy(block_tile).to(self.device)
+            if has_ov:
+                d_op, d_ov = (
+                    torch.from_numpy(np.ascontiguousarray(a, dtype=t))
+                    .to(self.device)
+                    for a, t in ((ov_pos, np.int32), (ov_vid, np.uint8)))
         with timer.stage("kernel_a"):
             counts = lanes_counts(d_vb, d_bt, self.n_tiles, self.r_sub,
-                                  self.tile_w, self.body)
-        if ov_pos is not None and len(ov_pos):
+                                  self.tile_w, self.body,
+                                  block_tile_host=block_tile)
+        if has_ov:
             with timer.stage("kernel_b"):
-                p_pad = self.n_tiles * self.tile_w
-                cp, cv, ct, n_tiles = prepare_chunks(
-                    np.asarray(ov_pos, dtype=np.int64),
-                    np.asarray(ov_vid, dtype=np.int32), p_pad,
-                )
-                extra = chunk_counts(
-                    torch.from_numpy(cp).to(self.device),
-                    torch.from_numpy(cv).to(self.device),
-                    torch.from_numpy(ct).to(self.device), n_tiles,
-                )
-                counts += extra[:, :p_pad]
+                overflow_counts(counts, d_op, d_ov)
         return counts
 
     def forward(self, counts: torch.Tensor, valid_thr: torch.Tensor,

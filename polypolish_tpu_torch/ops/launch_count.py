@@ -1,8 +1,8 @@
-"""The kernels' launch counters (``chunk_counts.launches``, an int, and
-``lanes_counts.launches``, a Counter by entry point) and the one lock
-that guards them.  ``batch`` launches kernels from several worker
-threads, and ``+= 1`` is a read-modify-write that loses counts without
-it."""
+"""The kernels' launch counters (``chunk_counts.launches`` and
+``overflow_counts.launches``, ints, and ``lanes_counts.launches``, a
+Counter by entry point) and the one lock that guards them.  ``batch``
+launches kernels from several worker threads, and ``+= 1`` is a
+read-modify-write that loses counts without it."""
 
 from __future__ import annotations
 

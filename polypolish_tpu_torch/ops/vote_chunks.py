@@ -13,9 +13,10 @@ events carry position -1 (int32 layout, ``prepare_chunks``) or vocab 255
 ``chunk_counts`` turns a chunk stream into the (8, n_tiles*tile_p) int32
 counts: on CUDA tensors it launches the hand-written kernel
 ``csrc/chunk_vote.cu``; on CPU tensors it runs ``chunk_counts_plain``,
-the plain PyTorch version of the same function.  It folds the
-cap-overflow list of the lanes pack, and it counts the whole pileup on
-the mxu polish path and in ``dense_counts_chunks``.  The JAX package's
+the plain PyTorch version of the same function.  It counts the whole
+pileup on the mxu polish path, the event path and in
+``dense_counts_chunks``; the lanes path's cap-overflow list goes to the
+overflow vote kernel (``vote_lanes.overflow_counts``).  The JAX package's
 three kernel variants (``split``, ``fused``, ``unfused``) lay this one
 function onto the TPU's matrix unit in three ways; one Hopper kernel
 serves all three.

@@ -21,7 +21,10 @@ bodies:
 counts: on a CUDA tensor it launches the layout's entry point of the
 hand-written kernel ``csrc/lanes_vote.cu``; on a CPU tensor it runs
 ``lanes_counts_plain``, the plain PyTorch version of the same function.
-Counts are exact integer sums, so both are bitwise equal to the host
+``overflow_counts`` adds a capped pack's overflow list into those
+counts in place: the hand-written kernel ``csrc/overflow_vote.cu`` on
+CUDA tensors, its plain version ``add_overflow_counts`` on CPU tensors.
+Counts are exact integer sums, so all are bitwise equal to the host
 fold.
 
 The packers here are numpy copies of the JAX package's
@@ -345,7 +348,9 @@ def tile_row_start(block_tile: np.ndarray, n_tiles: int,
 
 def lanes_counts(vb: torch.Tensor, block_tile: torch.Tensor, n_tiles: int,
                  r_sub: int = R_SUB, tile_w: int = TILE_W,
-                 body: str = "packed4") -> torch.Tensor:
+                 body: str = "packed4",
+                 block_tile_host: Optional[np.ndarray] = None
+                 ) -> torch.Tensor:
     """(8, n_tiles*tile_w) int32 vote counts of a lane pack.
 
     vb: (n_blocks*r_sub/s, tile_w) rows of the body's layout (s = 4 and
@@ -354,8 +359,12 @@ def lanes_counts(vb: torch.Tensor, block_tile: torch.Tensor, n_tiles: int,
     same device.  A CUDA tensor launches the body's entry point of the
     lanes vote kernel (csrc/lanes_vote.cu) on the current stream (packed4
     and byte rows: two kernels over a split of each tile's rows); a CPU
-    tensor runs lanes_counts_plain.  ``lanes_counts.launches`` counts
-    entry-point launches (one per call) by entry point."""
+    tensor runs lanes_counts_plain.  The launch builds its tile prefix
+    on the host from ``block_tile_host``, the host array that block_tile
+    was uploaded from, where the caller has it; without it, from a copy
+    of block_tile read back from the card, which waits for the stream.
+    ``lanes_counts.launches`` counts entry-point launches (one per call)
+    by entry point."""
     if vb.device.type == "cpu":
         return lanes_counts_plain(vb, block_tile, n_tiles, r_sub, tile_w,
                                   body)
@@ -366,7 +375,13 @@ def lanes_counts(vb: torch.Tensor, block_tile: torch.Tensor, n_tiles: int,
         # the packed4 and byte kernels read rows in 16-byte pieces: a
         # view that starts mid-row is copied to a fresh (aligned) buffer
         vb = vb.clone()
-    starts = tile_row_start(block_tile.cpu().numpy(), n_tiles,
+    if block_tile_host is None:
+        block_tile_host = block_tile.cpu().numpy()
+    elif np.shape(block_tile_host) != tuple(block_tile.shape):
+        raise ValueError(f"block_tile_host has shape "
+                         f"{np.shape(block_tile_host)}, block_tile "
+                         f"{tuple(block_tile.shape)}")
+    starts = tile_row_start(block_tile_host, n_tiles,
                             _rows_per_block(r_sub, body))
     d_starts = torch.from_numpy(starts).to(vb.device)
     out = torch.empty((DENSE_V, n_tiles * tile_w), dtype=torch.int32,
@@ -388,20 +403,104 @@ lanes_counts.launches = collections.Counter()
 
 def add_overflow_counts(counts: torch.Tensor, ov_pos, ov_vid
                         ) -> torch.Tensor:
-    """Add the depth-stratified overflow events (vocab bytes at
-    positions whose depth exceeded the tile's row cap; numpy arrays or
-    tensors) onto the kernel counts, in place.  Exact integer adds,
-    bitwise-equal to having packed them into lane slots.  Pad/sparse
-    entries (vid >= 8 or pos >= P) drop.  A numpy array's upload is from
-    pageable memory (it has finished when this returns, so the arrays
-    may alias native memory that is freed next), and the drop's boolean
-    compaction waits for the device."""
+    """Plain PyTorch version of the overflow vote kernel: add the
+    depth-stratified overflow events (vocab bytes at positions whose
+    depth exceeded the tile's row cap; numpy arrays or tensors) onto
+    the kernel counts, in place, with one ``index_put_``.  Exact
+    integer adds, bitwise-equal to having packed them into lane slots.
+    Pad/sparse entries (vid >= 8 or pos outside [-P, P)) drop; a pos in
+    [-P, 0) wraps, as JAX's mode='drop' scatter does.  A numpy array's
+    upload is from pageable memory (it has finished when this returns,
+    so the arrays may alias native memory that is freed next), and the
+    drop's boolean compaction waits for the device."""
     from polypolish_tpu_torch.ops.vote import scatter_add_drop
 
     dev = counts.device
     vid, pos = (a if torch.is_tensor(a) else torch.from_numpy(np.asarray(a))
                 for a in (ov_vid, ov_pos))
     return scatter_add_drop(counts, vid.to(dev), pos.to(dev))
+
+
+def _check_overflow_args(counts: torch.Tensor, ov_pos: torch.Tensor,
+                         ov_vid: torch.Tensor) -> None:
+    if (counts.dtype != torch.int32 or counts.dim() != 2
+            or counts.shape[0] != DENSE_V or not counts.is_contiguous()):
+        raise ValueError(f"counts must be a contiguous int32 "
+                         f"({DENSE_V}, width) tensor; got {counts.dtype} "
+                         f"{tuple(counts.shape)}")
+    if (ov_pos.dtype != torch.int32 or ov_vid.dtype != torch.uint8
+            or ov_pos.dim() != 1 or ov_pos.shape != ov_vid.shape):
+        raise ValueError(f"ov_pos and ov_vid must be int32 and uint8 of "
+                         f"one length; got {ov_pos.dtype} "
+                         f"{tuple(ov_pos.shape)}, {ov_vid.dtype} "
+                         f"{tuple(ov_vid.shape)}")
+    if not counts.device == ov_pos.device == ov_vid.device:
+        raise ValueError("counts, ov_pos and ov_vid must be on one device")
+    if not (ov_pos.is_contiguous() and ov_vid.is_contiguous()):
+        raise ValueError("ov_pos and ov_vid must be contiguous")
+
+
+_overflow_lib: Optional[ctypes.CDLL] = None
+
+
+def _overflow_kernel() -> ctypes.CDLL:
+    global _overflow_lib
+    if _overflow_lib is None:
+        from polypolish_tpu_torch import _build
+
+        lib = _build.load("overflow_vote")
+        lib.overflow_vote.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+        ]
+        lib.overflow_vote.restype = ctypes.c_int
+        lib.overflow_vote_grid_events.argtypes = []
+        lib.overflow_vote_grid_events.restype = ctypes.c_int64
+        _overflow_lib = lib
+    return _overflow_lib
+
+
+def overflow_counts(counts: torch.Tensor, ov_pos: torch.Tensor,
+                    ov_vid: torch.Tensor) -> torch.Tensor:
+    """Add a capped pack's overflow list into its counts, in place, and
+    return counts: ``counts[vid, pos] += 1`` per event, dropping vid >= 8
+    and pos outside [-P, P) (a pos in [-P, 0) wraps), as the JAX
+    package's overflow fold does.
+
+    counts: contiguous int32 (8, P), kernel A's output; ov_pos int32 and
+    ov_vid uint8, 1-D, as the packers emit them (sorted by (pos, vid);
+    any order counts the same), on counts' device.  CUDA tensors launch
+    the overflow vote kernel (csrc/overflow_vote.cu) on the current
+    stream, with no sync; CPU tensors run add_overflow_counts.
+    ``overflow_counts.launches`` counts kernel launches (none for an
+    empty list)."""
+    _check_overflow_args(counts, ov_pos, ov_vid)
+    if counts.device.type == "cpu":
+        return add_overflow_counts(counts, ov_pos, ov_vid)
+    if counts.device.type != "cuda":
+        raise ValueError(f"overflow_counts: unsupported device "
+                         f"{counts.device}")
+    n = ov_pos.shape[0]
+    if n == 0:
+        return counts
+    # the kernel reads 16-byte vectors: a view that starts mid-vector is
+    # copied to a fresh (aligned) buffer
+    if ov_pos.data_ptr() % 16:
+        ov_pos = ov_pos.clone()
+    if ov_vid.data_ptr() % 16:
+        ov_vid = ov_vid.clone()
+    with torch.cuda.device(counts.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _overflow_kernel().overflow_vote(
+            ov_pos.data_ptr(), ov_vid.data_ptr(), n, counts.data_ptr(),
+            counts.shape[1], stream)
+    if err != 0:
+        raise RuntimeError(f"overflow_vote launch failed: CUDA error {err}")
+    launch_count.bump(overflow_counts)
+    return counts
+
+
+overflow_counts.launches = 0
 
 
 def dense_counts_lanes(
@@ -416,8 +515,8 @@ def dense_counts_lanes(
 ) -> torch.Tensor:
     """(8, P) int32 dense vote counts on ``device`` through the lanes
     vote kernel with the given body's layout.  cap=True uses the
-    depth-stratified layout and adds the overflow events back with one
-    scatter-add."""
+    depth-stratified layout and adds the overflow events back with
+    overflow_counts."""
     _rows_per_block(r_sub, body)
     packed = prepare_lanes(pos, vocab, num_positions, r_sub, tile_w,
                            cap=cap)
@@ -430,5 +529,6 @@ def dense_counts_lanes(
                        torch.from_numpy(block_tile).to(device), n_tiles,
                        r_sub, tile_w, body)
     if cap and packed[3].size:
-        out = add_overflow_counts(out, packed[3], packed[4])
+        overflow_counts(out, *(torch.from_numpy(a).to(out.device)
+                               for a in packed[3:5]))
     return out[:, :num_positions]

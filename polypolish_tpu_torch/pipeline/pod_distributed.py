@@ -22,8 +22,9 @@ in-process ``--pod-shards`` feeds with its local shards' arrays.
 
 With POLYPOLISH_TPU_POD_DEVICE_VOTES=1 each process counts its shard's
 votes on its own device (kernel A over its capped lane pack plus the
-chunk kernel over the cap overflow, ``LanesPolisher.vote_counts``)
-instead of the host fold; only the counts cross to the host for the
+overflow vote kernel over the cap overflow,
+``LanesPolisher.vote_counts``) instead of the host fold; only the
+counts cross to the host for the
 sum.  Every process computes the same consensus; process 0 writes the
 FASTA and the --debug TSV, byte-identical to single-process
 ``polish()``.
@@ -129,9 +130,9 @@ def rank_device(device) -> torch.device:
 def _device_counts(shard, name: str, P: int, device) -> np.ndarray:
     """This process's (8, P) int32 counts of one contig on ``device``:
     its capped lane pack through kernel A, its overflow through the
-    chunk kernel.  A shard with no alignment on the contig still gets a
-    pack (all pad), so it votes zeros through the same kernels; no pack
-    at all is a native failure, and raises."""
+    overflow vote kernel.  A shard with no alignment on the contig
+    still gets a pack (all pad), so it votes zeros through the same
+    kernels; no pack at all is a native failure, and raises."""
     from polypolish_tpu_torch.models.polisher import LanesPolisher
 
     p_pad = _pad_bucket(P)

@@ -14,8 +14,8 @@ Four backends (the JAX package's ``pallas`` is the port's
   host, then votes and consensus on ``device`` ("cuda" by default;
   "cpu" runs the kernels' plain PyTorch versions).  ``kernel_variant``
   picks the vote kernel: "lanes" (default) packs the lane layout in C++
-  and counts with the lanes vote kernel plus the chunk vote kernel over
-  the cap-overflow list (``LanesPolisher``), fetching compact uint8
+  and counts with the lanes vote kernel plus the overflow vote kernel
+  over the cap-overflow list (``LanesPolisher``), fetching compact uint8
   results; "mxu" packs the uint8 chunk layout in C++ and counts the
   whole pileup with the chunk vote kernel (``PolisherModel``).
 - ``xla``: the chunk layout of "mxu" counted by a torch scatter-add on
@@ -631,9 +631,10 @@ def _polish_device_runs_windowed(
     """The device backend (variant lanes) for huge contigs: depth and
     thresholds from pp_fold_window (no host counts), votes from kernel
     A on each window's native packed4 pack (pp_lanes_from_runs with
-    window origin w_lo) plus kernel B over the window's cap-overflow
-    list, consensus on ``device``, decisions fetched as uint8.  Every
-    window has the same padded width w_pad, a multiple of TILE_W.
+    window origin w_lo) plus the overflow vote kernel over the window's
+    cap-overflow list, consensus on ``device``, decisions fetched as
+    uint8.  Every window has the same padded width w_pad, a multiple of
+    TILE_W.
 
     Windows run one after another, in position order, so the depth
     total is one left-fold.  The JAX package's

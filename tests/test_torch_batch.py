@@ -16,7 +16,7 @@ from polypolish_tpu.pipeline.batch import parse_manifest as jax_manifest
 from polypolish_tpu.pipeline.batch import polish_batch as jax_batch
 from polypolish_tpu_torch.errors import PolypolishError
 from polypolish_tpu_torch.pipeline.batch import parse_manifest, polish_batch
-from tests.torch_helpers import mask_clock
+from tests.torch_helpers import count_polisher_calls, mask_clock, synth_case
 
 
 def _jobs(tmp_path, n, tag, seed0=100):
@@ -60,6 +60,24 @@ def test_batch_matches_jax(tmp_path, capsys, workers):
     dev = _run(polish_batch, _retarget(jobs, "dev"), capsys,
                backend="device", device="cpu", workers=workers)
     assert dev[1] == want[1]
+
+
+def test_batch_device_folds_overflow_once_per_job(tmp_path, capsys,
+                                                   monkeypatch):
+    """batch --backend device (on the CPU, one worker) over two jobs
+    whose lane packs have cap-overflow events: kernel A and the overflow
+    wrapper once per job, the chunk kernel's never; outputs equal the
+    host backend's."""
+    calls = count_polisher_calls(monkeypatch)
+    asm, sams = synth_case(tmp_path, "deep")
+    jobs = [(str(asm), str(tmp_path / f"deep_{k}.fasta"),
+             [str(s) for s in sams]) for k in range(2)]
+    dev = _run(polish_batch, jobs, capsys, backend="device", device="cpu",
+               workers=1)
+    assert dict(calls) == {"lanes_counts": 2, "overflow_counts": 2}
+    host = _run(polish_batch, _retarget(jobs, "host"), capsys,
+                backend="host", workers=1)
+    assert dev[1] == host[1]
 
 
 def test_batch_reports_failures_like_jax(tmp_path, capsys):

@@ -252,8 +252,8 @@ def test_kernel_variable_picks_the_chunk_path(tmp_path, monkeypatch,
 def test_ov_mode_variable_matches_jax_cli(tmp_path, monkeypatch,
                                           kernel_calls, ov_mode):
     """The lanes polish of a case with cap-overflow events under
-    POLYPOLISH_TPU_OV_MODE: the port folds the overflow with the chunk
-    kernel whatever the value, and its stdout, --debug TSV and stderr
+    POLYPOLISH_TPU_OV_MODE: the port folds the overflow with the
+    overflow kernel whatever the value, and its stdout, --debug TSV and stderr
     equal the JAX CLI's --backend pallas under the same value (its
     scatter or its chunk kernel)."""
     from tests.torch_helpers import synth_case
@@ -264,7 +264,7 @@ def test_ov_mode_variable_matches_jax_cli(tmp_path, monkeypatch,
     monkeypatch.setenv("POLYPOLISH_TPU_OV_MODE", ov_mode)
     fasta = _in_process([args[0], "--backend", "device", "--device", "cpu",
                          *args[1:]])
-    assert dict(kernel_calls) == {"lanes_counts": 1, "chunk_counts": 1}
+    assert dict(kernel_calls) == {"lanes_counts": 1, "overflow_counts": 1}
     got = _cli("polypolish_tpu_torch", args[0], "--backend", "device",
                *args[1:], debug=dbg, POLYPOLISH_TPU_OV_MODE=ov_mode)
     want = _cli("polypolish_tpu", args[0], "--backend", "pallas", *args[1:],

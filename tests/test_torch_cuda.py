@@ -1,7 +1,8 @@
 """GPU-only tests of polypolish_tpu_torch: each CUDA kernel entry point
 against its plain PyTorch version on the card, bitwise (the lanes
 kernel's three row layouts across their plane-flush periods, the chunk
-kernel across tile_p, e_sub and chunks_per_step), and every device
+kernel across tile_p, e_sub and chunks_per_step, the overflow kernel on
+sorted, unsorted, out-of-range and grid-long lists), and every device
 polish path against the host backend.  They skip when torch.cuda.is_available() is
 false.  This file imports no jax, so it runs on a machine without it:
 
@@ -68,6 +69,12 @@ def rand_events(n, num_positions, seed, sparse_frac=0.0, skew=False):
 def on(device, *arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
             for a in arrays]
+
+
+def zero_launches():
+    tvl.lanes_counts.launches.clear()
+    tvl.overflow_counts.launches = 0
+    tvc.chunk_counts.launches = 0
 
 
 def lanes_both(cuda_device, vb, bt, n_tiles, r_sub, tile_w,
@@ -201,6 +208,21 @@ def test_lanes_kernel_unaligned_rows_match_plain(cuda_device, body):
     assert torch.equal(got, want)
 
 
+def test_lanes_kernel_takes_the_host_block_tile(cuda_device):
+    """lanes_counts given block_tile's host array builds its tile prefix
+    from it, with the same counts as from block_tile read back, and
+    refuses one of another length."""
+    pos, vocab = rand_events(200_000, 30_000, 4, skew=True)
+    vb, bt, n_tiles = tvl.prepare_lanes(pos, vocab, 30_000)
+    vb = tvl.to_packed4(vb, tvl.R_SUB)
+    d_vb, d_bt = on(cuda_device, vb, bt)
+    got = tvl.lanes_counts(d_vb, d_bt, n_tiles, block_tile_host=bt)
+    want = tvl.lanes_counts(d_vb, d_bt, n_tiles)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="block_tile_host"):
+        tvl.lanes_counts(d_vb, d_bt, n_tiles, block_tile_host=bt[1:])
+
+
 def test_lanes_kernel_rejects_unsorted_tiles(cuda_device):
     vb = torch.zeros((16, 128), dtype=torch.int32, device=cuda_device)
     bt = torch.tensor([1, 0], dtype=torch.int32, device=cuda_device)
@@ -272,15 +294,15 @@ def test_polish_on_gpu_matches_host(cuda_device, tmp_path):
     for backend in ("device", "host"):
         out, err = io.StringIO(), io.StringIO()
         dbg = tmp_path / f"{backend}.tsv"
-        tvl.lanes_counts.launches.clear()
-        tvc.chunk_counts.launches = 0
+        zero_launches()
         with contextlib.redirect_stderr(err):
             polish(str(dbg), 0.2, 0.5, 10, 5, False, str(asm), [str(sam)],
                    out=out, backend=backend, device=cuda_device)
         results[backend] = (out.getvalue(), dbg.read_text())
         if backend == "device":
             assert tvl.lanes_counts.launches == {"lanes_vote_packed4": 1}
-            assert tvc.chunk_counts.launches == 1
+            assert tvl.overflow_counts.launches == 1
+            assert tvc.chunk_counts.launches == 0
     assert results["device"] == results["host"]
 
 
@@ -308,6 +330,104 @@ def test_overflow_scatter_matches_chunk_kernel(cuda_device):
             *args)
         assert torch.equal(got, want)
         assert torch.equal(got.cpu(), cpu)
+
+
+def overflow_both(cuda_device, width, pos, vid, base=None):
+    """(kernel counts, plain counts) of one overflow list added onto
+    ``base`` (zeros by default), the kernel's launch counted once."""
+    base = (np.zeros((8, width), np.int32) if base is None
+            else np.asarray(base, np.int32))
+    before = tvl.overflow_counts.launches
+    got = tvl.overflow_counts(*on(cuda_device, base, pos, vid))
+    torch.cuda.synchronize()
+    assert tvl.overflow_counts.launches == before + (len(pos) > 0)
+    want = tvl.add_overflow_counts(*on(cuda_device, base, pos, vid))
+    return got.cpu().numpy(), want.cpu().numpy()
+
+
+def overflow_list(rng, n, width, sort=True):
+    """A list as the packer leaves it (sorted by (pos, vid), runs of
+    equal keys) or shuffled."""
+    pos = rng.integers(0, width, n).astype(np.int32)
+    vid = rng.integers(0, 8, n).astype(np.uint8)
+    pos[: n // 4] = pos[0]  # one deep position: runs across threads
+    vid[: n // 8] = vid[0]
+    o = np.lexsort((vid, pos)) if sort else rng.permutation(n)
+    return pos[o], vid[o]
+
+
+@pytest.mark.parametrize("n,width,sort", [
+    (1, 256, True), (15, 256, True), (16, 256, True), (17, 256, True),
+    (511, 2048, True), (513, 2048, True), (300_000, 64 * 2048, True),
+    (300_000, 64 * 2048, False), (1_000_000, 4096, True),
+])
+def test_overflow_kernel_matches_plain(cuda_device, n, width, sort):
+    rng = np.random.default_rng(n + width)
+    pos, vid = overflow_list(rng, n, width, sort)
+    base = rng.integers(0, 100, (8, width))
+    got, want = overflow_both(cuda_device, width, pos, vid, base)
+    np.testing.assert_array_equal(got, want)
+    assert int(got.sum() - base.sum()) == n
+
+
+def test_overflow_kernel_drops_and_wraps(cuda_device):
+    """vid >= 8 and pos outside [-width, width) drop; a pos in
+    [-width, 0) wraps, as the plain version (JAX's mode='drop')
+    does; an empty list launches nothing."""
+    width = 1024
+    pos = np.array([0, 0, 5, 5, 5, 1023, 1024, 5000, -1, -1024, -1025,
+                    2**31 - 1, -2**31, 7, 7], np.int32)
+    vid = np.array([1, 1, 7, 7, 8, 0, 2, 3, 4, 4, 4, 1, 1, 255, 9],
+                   np.uint8)
+    got, want = overflow_both(cuda_device, width, pos, vid)
+    np.testing.assert_array_equal(got, want)
+    assert got[4, width - 1] == 1 and got[4, 0] == 1 and got.sum() == 7
+    got, want = overflow_both(cuda_device, width, pos[:0], vid[:0])
+    assert not got.any() and not want.any()
+
+
+def test_overflow_kernel_one_deep_position(cuda_device):
+    """Thousands of events of all eight ids at one position, between
+    sparse neighbours: runs spanning many threads and warps."""
+    width = 2048
+    pos = np.concatenate([np.arange(0, 100), np.full(40_000, 777),
+                          np.arange(1000, 1100)]).astype(np.int32)
+    vid = np.concatenate([np.zeros(100), np.repeat(np.arange(8), 5000),
+                          np.full(100, 7)]).astype(np.uint8)
+    got, want = overflow_both(cuda_device, width, pos, vid)
+    np.testing.assert_array_equal(got, want)
+    assert (got[:, 777] == 5000).all()
+
+
+def test_overflow_kernel_longer_than_its_grid(cuda_device):
+    """A list longer than one pass of the kernel's grid, each warp
+    looping over several spans; also from views that start off a
+    16-byte boundary (copied by the wrapper)."""
+    per_pass = tvl._overflow_kernel().overflow_vote_grid_events()
+    n = 2 * per_pass + 12_345
+    rng = np.random.default_rng(3)
+    width = 1 << 20
+    pos, vid = overflow_list(rng, n, width)
+    got, want = overflow_both(cuda_device, width, pos, vid)
+    np.testing.assert_array_equal(got, want)
+    d_pos, d_vid = on(cuda_device, pos, vid)
+    counts = torch.zeros((8, width), dtype=torch.int32, device=cuda_device)
+    tvl.overflow_counts(counts, d_pos[3:], d_vid[3:])
+    plain = tvl.add_overflow_counts(
+        torch.zeros_like(counts), d_pos[3:], d_vid[3:])
+    assert torch.equal(counts, plain)
+
+
+def test_overflow_kernel_rejects_bad_arguments(cuda_device):
+    counts = torch.zeros((8, 64), dtype=torch.int32, device=cuda_device)
+    pos = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    vid = torch.zeros(4, dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError, match="int32 and uint8"):
+        tvl.overflow_counts(counts, pos.long(), vid)
+    with pytest.raises(ValueError, match="one device"):
+        tvl.overflow_counts(counts, pos.cpu(), vid)
+    with pytest.raises(ValueError, match="contiguous int32"):
+        tvl.overflow_counts(counts[:, ::2], pos, vid)
 
 
 def _deep_rows(rng, per_tile, row_values, tile_w):
@@ -434,13 +554,13 @@ def test_polish_mxu_and_xla_on_gpu_match_host(cuda_device, tmp_path):
             ("xla", dict(backend="xla"), 0)):
         out, err = io.StringIO(), io.StringIO()
         dbg = tmp_path / f"{name}.tsv"
-        tvl.lanes_counts.launches.clear()
-        tvc.chunk_counts.launches = 0
+        zero_launches()
         with contextlib.redirect_stderr(err):
             polish(str(dbg), 0.2, 0.5, 10, 5, False, str(asm), [str(sam)],
                    out=out, device=cuda_device, **kwargs)
         results[name] = (out.getvalue(), dbg.read_text())
         assert sum(tvl.lanes_counts.launches.values()) == 0
+        assert tvl.overflow_counts.launches == 0
         assert tvc.chunk_counts.launches == chunk_launches
     assert results["mxu"] == results["host"]
     assert results["xla"] == results["host"]
@@ -510,8 +630,8 @@ def test_chunk_kernel_rejects_unordered_tiles(cuda_device):
 def test_windowed_polish_on_gpu_matches_host(cuda_device, tmp_path,
                                              monkeypatch, depth):
     """The windowed device twin on the card (kernel A once per window,
-    the chunk kernel once per window with overflow events) against the
-    unwindowed host backend."""
+    the overflow kernel once per window with overflow events, no chunk
+    kernel) against the unwindowed host backend."""
     fasta, sam_text = synth.make_polish_case(
         seed=12, genome_len=20_000, n_reads=20_000, read_len=60, err=0.15,
         multi_frac=0.5, n_draft_errors=40)
@@ -530,11 +650,11 @@ def test_windowed_polish_on_gpu_matches_host(cuda_device, tmp_path,
     monkeypatch.setenv("POLYPOLISH_TPU_WINDOW_MIN", "1")
     monkeypatch.setenv("POLYPOLISH_TPU_WINDOW", "4096")
     monkeypatch.setenv("POLYPOLISH_TPU_WINDOW_DEPTH", str(depth))
-    tvl.lanes_counts.launches.clear()
-    tvc.chunk_counts.launches = 0
+    zero_launches()
     assert run("device") == host
     assert tvl.lanes_counts.launches == {"lanes_vote_packed4": 5}
-    assert 1 <= tvc.chunk_counts.launches <= 5
+    assert 1 <= tvl.overflow_counts.launches <= 5
+    assert tvc.chunk_counts.launches == 0
     assert run("host") == host
 
 
@@ -580,8 +700,7 @@ def test_event_path_on_gpu_matches_cpu(cuda_device, tmp_path, backend):
     for dev in (cuda_device, torch.device("cpu")):
         out, err = io.StringIO(), io.StringIO()
         dbg = tmp_path / f"{dev.type}.tsv"
-        tvl.lanes_counts.launches.clear()
-        tvc.chunk_counts.launches = 0
+        zero_launches()
         with contextlib.redirect_stderr(err):
             polish(str(dbg), 0.2, 0.5, 10, 5, False, str(asm), [str(sam)],
                    out=out, backend=backend, device=dev, use_native=False,
@@ -589,13 +708,14 @@ def test_event_path_on_gpu_matches_cpu(cuda_device, tmp_path, backend):
         results[dev.type] = (out.getvalue(), dbg.read_text())
         if dev.type == "cuda":
             assert sum(tvl.lanes_counts.launches.values()) == 0
+            assert tvl.overflow_counts.launches == 0
             assert tvc.chunk_counts.launches == (backend == "device")
     assert results["cuda"] == results["cpu"]
 
 
 def _has_overflow(asm, sams):
     """Whether the lanes path's pack of a one-contig genome has
-    cap-overflow events (then the chunk kernel folds them)."""
+    cap-overflow events (then the overflow kernel folds them)."""
     from polypolish_tpu_torch.io.fasta import load_fasta
     from polypolish_tpu_torch.native.runs import parse_runs
     from polypolish_tpu_torch.pipeline.polish import _pad_bucket
@@ -634,14 +754,14 @@ def test_batch_on_gpu_counts_every_launch(cuda_device, tmp_path):
             for i, (a, _, s) in enumerate(jobs)]
     with contextlib.redirect_stderr(io.StringIO()):
         polish_batch(host, backend="host", workers=1)
-        tvl.lanes_counts.launches.clear()
-        tvc.chunk_counts.launches = 0
+        zero_launches()
         results = polish_batch(jobs, backend="device", workers=3,
                                device=cuda_device)
     assert all("error" not in r for r in results)
     assert tvl.lanes_counts.launches == {"lanes_vote_packed4": 6}
-    assert tvc.chunk_counts.launches == sum(_has_overflow(*j[::2])
-                                           for j in jobs)
+    assert tvl.overflow_counts.launches == sum(_has_overflow(*j[::2])
+                                               for j in jobs)
+    assert tvc.chunk_counts.launches == 0
     for (_, got, _), (_, want, _) in zip(jobs, host):
         with open(got) as g, open(want) as w:
             assert g.read() == w.read()
@@ -651,7 +771,7 @@ def test_batch_on_gpu_counts_every_launch(cuda_device, tmp_path):
 def test_sharded_grid_on_gpu(cuda_device, tmp_path, grid):
     """polish(backend="sharded") on a grid of the card: FASTA equal to
     the host backend's, kernel A launched once per grid cell and contig,
-    no chunk kernel (the mesh pack has no cap)."""
+    no overflow or chunk kernel (the mesh pack has no cap)."""
     from polypolish_tpu_torch.parallel import make_mesh
 
     fasta, sam_text = synth.make_multi_contig_case(
@@ -664,8 +784,7 @@ def test_sharded_grid_on_gpu(cuda_device, tmp_path, grid):
     with contextlib.redirect_stderr(io.StringIO()):
         host = io.StringIO()
         polish(*args, out=host, backend="host")
-        tvl.lanes_counts.launches.clear()
-        tvc.chunk_counts.launches = 0
+        zero_launches()
         got = io.StringIO()
         n = grid[0] * grid[1]
         polish(*args, out=got, backend="sharded", device=cuda_device,
@@ -673,13 +792,13 @@ def test_sharded_grid_on_gpu(cuda_device, tmp_path, grid):
                kernel_variant="lanes")
     assert got.getvalue() == host.getvalue()
     assert tvl.lanes_counts.launches == {"lanes_vote_packed4": 2 * n}
-    assert tvc.chunk_counts.launches == 0
+    assert tvl.overflow_counts.launches == tvc.chunk_counts.launches == 0
 
 
 def test_pod_device_votes_on_gpu(cuda_device, tmp_path, monkeypatch):
     """The pod's device votes in one process (no group): kernel A once,
-    the chunk kernel once when the pack has cap overflow, FASTA equal to
-    the host backend's."""
+    the overflow kernel once when the pack has cap overflow, no chunk
+    kernel, FASTA equal to the host backend's."""
     from polypolish_tpu_torch.pipeline.pod_distributed import (
         polish_pod_distributed,
     )
@@ -695,10 +814,11 @@ def test_pod_device_votes_on_gpu(cuda_device, tmp_path, monkeypatch):
     with contextlib.redirect_stderr(io.StringIO()):
         host = io.StringIO()
         polish(*args, out=host, backend="host")
-        tvl.lanes_counts.launches.clear()
-        tvc.chunk_counts.launches = 0
+        zero_launches()
         got = io.StringIO()
         polish_pod_distributed(*args, out=got, device=cuda_device)
     assert got.getvalue() == host.getvalue()
     assert tvl.lanes_counts.launches == {"lanes_vote_packed4": 1}
-    assert tvc.chunk_counts.launches == _has_overflow(str(asm), [str(sam)])
+    assert tvl.overflow_counts.launches == _has_overflow(str(asm),
+                                                         [str(sam)])
+    assert tvc.chunk_counts.launches == 0

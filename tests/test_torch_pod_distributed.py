@@ -137,7 +137,7 @@ def test_two_files_two_contigs(tmp_path):
 @pytest.mark.parametrize("ov_mode", [None, "scatter"])
 def test_device_votes(tmp_path, monkeypatch, ov_mode):
     """POLYPOLISH_TPU_POD_DEVICE_VOTES=1: each rank counts its shard
-    with kernel A and the chunk kernel over its cap overflow (plain
+    with kernel A and the overflow kernel over its cap overflow (plain
     versions on the CPU) before the sum, whatever POLYPOLISH_TPU_OV_MODE
     says; the output stays byte-identical to the JAX package's
     single-process host run.  Both shards of the case hold
@@ -171,7 +171,7 @@ def test_device_votes(tmp_path, monkeypatch, ov_mode):
             np.testing.assert_array_equal(got, shard.fold(name)[0])
         finally:
             shard.close()
-        assert dict(calls) == {"lanes_counts": 1, "chunk_counts": 1}
+        assert dict(calls) == {"lanes_counts": 1, "overflow_counts": 1}
     _check_against_single(tmp_path, asm, sams, 2, **env)
 
 

@@ -62,11 +62,11 @@ def set_ov_mode(monkeypatch, ov_mode):
 
 def route_calls(has_overflow):
     """The wrapper calls of one vote_counts, whatever
-    POLYPOLISH_TPU_OV_MODE says: kernel A once, then the chunk kernel
-    when there are overflow events."""
+    POLYPOLISH_TPU_OV_MODE says: kernel A once, then the overflow kernel
+    when there are overflow events; never the chunk kernel."""
     want = {"lanes_counts": 1}
     if has_overflow:
-        want["chunk_counts"] = 1
+        want["overflow_counts"] = 1
     return want
 
 
@@ -144,8 +144,8 @@ def test_forward_pack_numpy_pack_matches_jax(monkeypatch, wrapper_calls,
 
 def test_ov_mode_is_read_at_every_call(monkeypatch, wrapper_calls):
     """One LanesPolisher under POLYPOLISH_TPU_OV_MODE changed between
-    calls (mxu, scatter, an unknown value, unset) keeps the chunk kernel
-    for the overflow and gives bitwise the JAX LanesPolisher's counts
+    calls (mxu, scatter, an unknown value, unset) keeps the overflow
+    kernel for the overflow and gives bitwise the JAX LanesPolisher's counts
     under the same value; the JAX package takes an unknown value for its
     default."""
     P, r_sub, tile_w = 3000, 8, 128

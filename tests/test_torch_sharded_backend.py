@@ -55,8 +55,8 @@ def _write_case(tmp_path, gz=False, empty_contig=False):
 
 @pytest.fixture
 def kernel_a_calls(monkeypatch):
-    """Calls of kernel A's wrapper by the grid step, and of both kernel
-    wrappers by the one-device polishers (which sharded must not use)."""
+    """Calls of kernel A's wrapper by the grid step, and of the kernel
+    wrappers of the one-device polishers (which sharded must not use)."""
     calls = {"grid": 0, "polisher": 0}
 
     def counting(fn, key):
@@ -67,7 +67,7 @@ def kernel_a_calls(monkeypatch):
 
     monkeypatch.setattr(port_shard, "lanes_counts",
                         counting(port_shard.lanes_counts, "grid"))
-    for name in ("lanes_counts", "chunk_counts"):
+    for name in ("lanes_counts", "overflow_counts", "chunk_counts"):
         monkeypatch.setattr(polisher, name,
                             counting(getattr(polisher, name), "polisher"))
     return calls

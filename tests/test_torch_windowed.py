@@ -137,19 +137,19 @@ def test_overflow_routes_match_jax(tmp_path, monkeypatch, ov_mode):
     """The device twin against the JAX package's windowed pallas path
     under each POLYPOLISH_TPU_OV_MODE route of its overflow fold, on a
     case whose two 2,048-position windows both hold cap-overflow events:
-    the port folds each window's overflow with the chunk kernel (the
-    window's width, not the contig's) whatever the value, and the output
-    equals the unwindowed host run."""
+    the port folds each window's overflow with the overflow kernel into
+    the window's counts (the window's width, not the contig's) whatever
+    the value, and the output equals the unwindowed host run."""
     from polypolish_tpu_torch.models import polisher
 
     asm, sams = _write(tmp_path, *_case("sparse"), "v")
     unwindowed = _polish(port_polish, asm, sams, backend="host")
     calls = []
     for name in POLISHER_WRAPPERS:
-        def wrap(*args, _fn=getattr(polisher, name), _name=name):
-            calls.append((_name, args[3] if _name == "chunk_counts"
-                          else None))
-            return _fn(*args)
+        def wrap(*args, _fn=getattr(polisher, name), _name=name, **kwargs):
+            calls.append((_name, args[0].shape[1]
+                          if _name == "overflow_counts" else None))
+            return _fn(*args, **kwargs)
 
         monkeypatch.setattr(polisher, name, wrap)
     monkeypatch.setenv("POLYPOLISH_TPU_OV_MODE", ov_mode)
@@ -157,10 +157,10 @@ def test_overflow_routes_match_jax(tmp_path, monkeypatch, ov_mode):
     port, jax = _both(asm, sams, "pallas")
     assert port == jax
     assert port == unwindowed
-    assert [c[0] for c in calls] == ["lanes_counts", "chunk_counts"] * 2
-    # each window's chunk kernel covers that window's tiles alone
-    for _, n_tiles in calls[1::2]:
-        assert n_tiles * polisher.TILE_P <= 2048
+    assert [c[0] for c in calls] == ["lanes_counts", "overflow_counts"] * 2
+    # each window's overflow goes into that window's counts alone
+    for _, width in calls[1::2]:
+        assert width == 2048
 
 
 def test_two_files_and_defaults_leave_small_contigs_unwindowed(

@@ -132,7 +132,7 @@ def cli_env(**extra):
     return env
 
 
-POLISHER_WRAPPERS = ("lanes_counts", "chunk_counts")
+POLISHER_WRAPPERS = ("lanes_counts", "overflow_counts", "chunk_counts")
 
 
 def count_polisher_calls(monkeypatch):
